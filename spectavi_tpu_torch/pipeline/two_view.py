@@ -1,0 +1,344 @@
+"""End-to-end two-view SfM pipeline (the reference's ex01).
+
+Port of ``spectavi_tpu/pipeline/two_view.py``, same five steps:
+
+1. SIFT keypoints + descriptors on both images;
+2. top-2 exact L2 matching + inverted-Lowe ratio test on squared
+   distances (``d2/d1 >= min_ratio^2``);
+3. essential-matrix RANSAC on K^-1-normalized points;
+4. DLT triangulation of the inliers -> sparse PLY cloud;
+5. epipolar rectification with ``P = K [R|t]``.
+
+On CUDA, steps 1+2 run as one device-resident front end
+(:func:`step12_fused_device`): descriptors stay on the card from SIFT
+through quantization to the matcher.  :func:`run_two_view` reads the
+image files and K; :func:`run_two_view_arrays` is the array-level core
+that takes decoded images.  Only the ``l2-mxu`` matcher is ported;
+``cascading-hash``, ``bruteforce``, ``ba=True`` and ``plots=True`` raise
+``NotImplementedError`` (ROADMAP.md items A10-A13).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from spectavi_tpu_torch import mvg, resolve_device
+from spectavi_tpu_torch.features import normalize_to_ubyte_and_multiple_16_dim, sift_filter_batch
+from spectavi_tpu_torch.pipeline.io import Timer, imread, write_ply
+
+_NOT_PORTED = {
+    "cascading-hash": "the cascading-hash matcher is not ported yet (ROADMAP.md item A12)",
+    "bruteforce": "the L1 brute-force matcher is not ported yet (ROADMAP.md item A12)",
+}
+
+
+def homogeneous(x):
+    return np.hstack((x, np.ones((x.shape[0], 1))))
+
+
+def resolve_matching_method(matching_method):
+    """``"auto"`` is the exact L2 top-2 matcher, the port's only one."""
+    if matching_method == "auto":
+        return "l2-mxu"
+    if matching_method in _NOT_PORTED:
+        raise NotImplementedError(_NOT_PORTED[matching_method])
+    if matching_method != "l2-mxu":
+        raise ValueError(matching_method)
+    return matching_method
+
+
+def _read_grays(image_paths):
+    return [imread(p, dtype="float32", force_grayscale=True) for p in image_paths]
+
+
+def step1_sift_detect(image_paths, quiet=False, device="cuda", images=None):
+    """SIFT rows ``(n, 132)`` of both images (``images``: decoded
+    float32 grayscale arrays, read from ``image_paths`` when None)."""
+    ims = images if images is not None else _read_grays(image_paths)
+    with Timer("step1-computation", quiet):
+        return sift_filter_batch(ims, device=device)
+
+
+def step2_match_keypoints(siftkps, matching_method="auto", min_ratio=1.75, quiet=False,
+                          device="cuda"):
+    """Host-quantized 132-col rows, exact L2 top-2, ratio test.  Returns
+    the matched rows ``(xd, yd)``."""
+    from spectavi_tpu_torch.match import nn_l2k2
+
+    x, y = siftkps
+    resolve_matching_method(matching_method)
+    # the full 132-col rows are quantized and matched, as the reference
+    # does: the de-meaned x, y, sigma, angle act as a weak spatial prior
+    _x = normalize_to_ubyte_and_multiple_16_dim(x)
+    _y = normalize_to_ubyte_and_multiple_16_dim(y)
+    with Timer("step2-computation", quiet):
+        nn_idx, nn_dist = nn_l2k2(
+            (_x + 128).astype("uint8"), (_y + 128).astype("uint8"), device=device
+        )
+    ratio = nn_dist[:, 1] / np.maximum(nn_dist[:, 0].astype("float64"), 1e-12)
+    pass_idx = ratio >= min_ratio**2  # squared-L2 distances, squared threshold
+    idx0 = nn_idx[:, 0].astype(np.int64)
+    return x[idx0[pass_idx]], y[pass_idx]
+
+
+def step12_fused_device(image_paths, min_ratio=1.75, quiet=False, device="cuda", images=None):
+    """Steps 1+2 with descriptors never leaving the device: SIFT leaves
+    uint8 descriptors on the device, the 132-col rows are assembled and
+    quantized there, and the matcher consumes them in place.  Returns
+    ``(metas, (xd, yd))`` with 4-col keypoint rows (steps 3-5 use only
+    columns 0-1).  Same matching semantics as step1 + step2."""
+    from spectavi_tpu_torch.features.normalize import normalize_to_ubyte_device
+    from spectavi_tpu_torch.features.sift import sift_filter_batch_device
+    from spectavi_tpu_torch.ops.l2nn import l2_topk2
+
+    dev = resolve_device(device)
+    ims = images if images is not None else _read_grays(image_paths)
+    with Timer("step1-computation", quiet):
+        outs = sift_filter_batch_device(ims, device=dev)
+    with Timer("step2-computation", quiet):
+        rows = [
+            torch.cat(
+                [torch.as_tensor(o["meta"], device=dev), o["desc"].to(torch.float32)], dim=1
+            )
+            for o in outs
+        ]
+        _x = normalize_to_ubyte_device(rows[0])
+        _y = normalize_to_ubyte_device(rows[1])
+        nn_idx, nn_dist = (t.cpu().numpy() for t in l2_topk2(_x, _y))
+    ratio = nn_dist[:, 1] / np.maximum(nn_dist[:, 0].astype("float64"), 1e-12)
+    pass_idx = ratio >= min_ratio**2
+    idx0 = nn_idx[:, 0].astype(np.int64)
+    xd = outs[0]["meta"][idx0[pass_idx]]
+    yd = outs[1]["meta"][pass_idx]
+    return [o["meta"] for o in outs], (xd, yd)
+
+
+def step3_estimate_essential(xd, yd, K, ransac_quality="ultra", options=None, generator=None,
+                             quiet=False, device="cuda"):
+    iK = np.linalg.inv(K)
+    x0 = homogeneous(xd[..., :2]) @ iK.T
+    x1 = homogeneous(yd[..., :2]) @ iK.T
+    quality = {"low": 0.6, "medium": 0.7, "high": 0.75, "ultra": 0.8, "uber": 0.9}
+    ransac_options = {
+        "required_percent_inliers": quality[ransac_quality],
+        "reprojection_error_allowed": 3.35e-4,
+        "maximum_tries": 10000000,
+        # keep the best model when the required consensus is not met,
+        # so steps 4-5 always have a model to work with
+        "find_best_even_in_failure": True,
+        "singular_value_ratio_allowed": 1e-3,
+        "progressbar": False,
+    }
+    if options:
+        ransac_options.update(options)
+    with Timer("step3-computation", quiet):
+        ransac = mvg.ransac_fitter(
+            x0, x1, options=ransac_options, generator=generator, device=device
+        )
+    return ransac, x0, x1, xd, yd
+
+
+def step4_triangulate(step3_out, image_paths=None, outdir=None, quiet=False, ba=False,
+                      distortion=False, images=None):
+    """DLT triangulation of the inliers (float64); PLY output with vertex
+    colors sampled from ``images`` (raw decodes) when given."""
+    if ba or distortion:
+        raise NotImplementedError(
+            "the two-view bundle-adjustment polish is not ported yet (ROADMAP.md item A11)"
+        )
+    ransac, x0, x1, xd, yd = step3_out
+    idx = ransac["inlier_idx"]
+    P1 = ransac["camera"]
+    P0 = np.hstack((np.eye(3), np.zeros((3, 1))))
+    with Timer("step4-computation", quiet):
+        RX = mvg.dlt_triangulate(P0, P1, x0[idx], x1[idx])
+    RX = RX / RX[..., -1:].reshape(-1, 1)
+    rgb = None
+    if images is None and image_paths is not None:
+        images = (imread(image_paths[0], dtype="uint8"), imread(image_paths[1], dtype="uint8"))
+    if images is not None:
+        im0, im1 = images
+        xy0 = xd[idx, :2].astype("int32")
+        xy1 = yd[idx, :2].astype("int32")
+        if np.issubdtype(im0.dtype, np.integer):
+            im0v = im0[xy0[:, 1], xy0[:, 0]] / np.float64(max(int(im0.max()), 1))
+            im1v = im1[xy1[:, 1], xy1[:, 0]] / np.float64(max(int(im1.max()), 1))
+        else:
+            im0v = im0[xy0[:, 1], xy0[:, 0]]
+            im1v = im1[xy1[:, 1], xy1[:, 0]]
+        rgb = np.round(255 * (im0v + im1v) / 2.0).astype("uint8")
+        if rgb.ndim == 1:
+            rgb = np.stack([rgb] * 3, axis=1)
+    if outdir is not None:
+        write_ply(os.path.join(outdir, "sparse_inliers.ply"), RX, rgb=rgb)
+    return RX, ransac
+
+
+def _max_normalized(im):
+    im = im.astype(np.float64)
+    return im / np.maximum(np.max(im), np.finfo(np.float64).tiny)
+
+
+def step5_rectify(ransac, K, image_paths, outdir=None, sampling_factor=1.0, quiet=False,
+                  images=None, device="cuda"):
+    """Rectify the pair: uint8 device rectification on CUDA
+    (:func:`mvg.rectify_pair_quantized`), the float64 reference API on
+    the CPU.  ``images``: raw decodes (read from ``image_paths`` when
+    None).  Writes ``rect-*`` images and index maps into ``outdir``."""
+    dev = resolve_device(device)
+    P1 = K @ ransac["camera"]
+    P0 = K @ np.hstack((np.eye(3), np.zeros((3, 1))))
+    if images is None:
+        images = (imread(image_paths[0], dtype="uint8"), imread(image_paths[1], dtype="uint8"))
+    im0, im1 = images
+    with Timer("step5-computation", quiet):
+        if dev.type == "cuda":
+            if im0.dtype != np.uint8 or im0.shape != im1.shape:
+                im0, im1 = _max_normalized(im0), _max_normalized(im1)
+            r0u, r1u, ri0, ri1 = mvg.rectify_pair_quantized(
+                P0, P1, im0, im1, sampling_factor=sampling_factor, device=dev
+            )
+            r0, r1 = r0u, r1u
+        else:
+            r0, r1, ri0, ri1 = mvg.image_pair_rectification(
+                P0, P1, _max_normalized(im0), _max_normalized(im1),
+                sampling_factor=sampling_factor,
+            )
+            r0u = np.clip(r0 * 255, 0, 255).astype("uint8")
+            r1u = np.clip(r1 * 255, 0, 255).astype("uint8")
+    if outdir is not None:
+        from PIL import Image
+
+        for r, p in ((r0u, image_paths[0]), (r1u, image_paths[1])):
+            arr = r[..., 0] if (r.ndim == 3 and r.shape[-1] == 1) else r
+            Image.fromarray(arr).save(os.path.join(outdir, "rect-" + os.path.basename(p)))
+        for ri, p in ((ri0, image_paths[0]), (ri1, image_paths[1])):
+            stem = os.path.basename(p).split(".")[0]
+            ri.tofile(os.path.join(outdir, "rect-idx-" + stem) + ".bin")
+    return r0, r1, ri0, ri1
+
+
+def run_two_view_arrays(grays, colors, K, image_names=("im0.png", "im1.png"), outdir=None,
+                        matching_method="auto", min_ratio=1.75, ransac_quality="ultra",
+                        rsf=1.0, cache=False, generator=None, quiet=False,
+                        ransac_options=None, ba=False, distortion=False, plots=False,
+                        device="cuda", decode_seconds=0.0):
+    """The pipeline on decoded images: ``grays`` two float32 grayscale
+    arrays in [0, 1] (SIFT input), ``colors`` the two raw decodes
+    (rectification and vertex colors), ``K (3, 3)``.  Output files, when
+    ``outdir`` is set, are named after ``image_names``.  Returns the
+    same dict as :func:`run_two_view`."""
+    dev = resolve_device(device)
+    if plots:
+        raise NotImplementedError("keypoint/match plots are not ported yet (ROADMAP.md item A10)")
+    if ba or distortion:
+        raise NotImplementedError(
+            "the two-view bundle-adjustment polish is not ported yet (ROADMAP.md item A11)"
+        )
+    if outdir is not None:
+        os.makedirs(outdir, exist_ok=True)
+    K = np.asarray(K, dtype=np.float64)
+    matching_method = resolve_matching_method(matching_method)
+    metrics = {
+        "images": [str(p) for p in image_names],
+        "matching_method": matching_method,
+        "ransac_quality": ransac_quality,
+    }
+
+    cache_file = os.path.join(outdir, "cache.npz") if outdir else None
+    step2_out = None
+    if cache and cache_file and os.path.exists(cache_file):
+        data = np.load(cache_file)
+        step2_out = (data["xd"], data["yd"])
+        metrics["match_cache_hit"] = True
+    if step2_out is None:
+        fused = dev.type == "cuda"
+        metrics["fused_frontend"] = fused
+        if fused:
+            t0 = time.perf_counter()
+            kps, step2_out = step12_fused_device(
+                image_names, min_ratio, quiet, device=dev, images=grays
+            )
+            metrics["step1_seconds"] = time.perf_counter() - t0
+            metrics["step2_seconds"] = 0.0  # fused into step 1
+        else:
+            t0 = time.perf_counter()
+            kps = step1_sift_detect(image_names, quiet, device=dev, images=grays)
+            metrics["step1_seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            step2_out = step2_match_keypoints(kps, matching_method, min_ratio, quiet, device=dev)
+            metrics["step2_seconds"] = time.perf_counter() - t0
+        metrics["keypoints"] = [int(kps[0].shape[0]), int(kps[1].shape[0])]
+        if not quiet:
+            print("sift 1 #: ", kps[0].shape[0])
+            print("sift 2 #: ", kps[1].shape[0])
+        if cache and cache_file:
+            np.savez_compressed(cache_file, xd=step2_out[0], yd=step2_out[1])
+
+    t0 = time.perf_counter()
+    step3_out = step3_estimate_essential(
+        step2_out[0], step2_out[1], K, ransac_quality, options=ransac_options,
+        generator=generator, quiet=quiet, device=dev,
+    )
+    metrics["step3_seconds"] = time.perf_counter() - t0
+    ransac = step3_out[0]
+    metrics["n_matches"] = int(step2_out[0].shape[0])
+    metrics["consensus"] = float(ransac["inlier_percent"])
+    metrics["n_inliers"] = int(len(ransac["inlier_idx"]))
+    metrics["ransac_success"] = bool(ransac["success"])
+    if not quiet:
+        print(" Number of keypoints: ", step2_out[0].shape[0])
+        print(" Percent of inliers: ", ransac["inlier_percent"])
+        _, s, _ = np.linalg.svd(ransac["essential"])
+        print(" Fundamental Matrix Singular Values: ", s)
+        print(" Singular Values ratio score: ", np.abs(s[0] - s[1]) / np.abs(s[0] + s[1]))
+    metrics["decode_seconds"] = float(decode_seconds)
+    t0 = time.perf_counter()
+    RX, ransac = step4_triangulate(step3_out, None, outdir, quiet, images=colors)
+    metrics["step4_seconds"] = time.perf_counter() - t0
+    metrics["n_points"] = int(RX.shape[0])
+    t0 = time.perf_counter()
+    rect = step5_rectify(
+        ransac, K, list(image_names), outdir, rsf, quiet, images=colors, device=dev
+    )
+    metrics["step5_seconds"] = time.perf_counter() - t0
+    metrics["total_seconds"] = sum(v for k, v in metrics.items() if k.endswith("_seconds"))
+    if outdir is not None:
+        from spectavi_tpu_torch.pipeline.io import write_metrics
+
+        write_metrics(os.path.join(outdir, "metrics.json"), metrics)
+    return {
+        "matches": step2_out,
+        "ransac": ransac,
+        "points": RX,
+        "rectified": rect,
+        "metrics": metrics,
+    }
+
+
+def run_two_view(image_paths, K_path, outdir="ex01_out", matching_method="auto",
+                 min_ratio=1.75, ransac_quality="ultra", rsf=1.0, cache=False,
+                 generator=None, quiet=False, ransac_options=None, ba=False,
+                 distortion=False, plots=False, device="cuda"):
+    """Full ex01 pipeline from image files and a ``K.txt``; returns
+    ``{"matches", "ransac", "points", "rectified", "metrics"}`` and
+    writes ``sparse_inliers.ply``, ``rect-*``, ``metrics.json`` (and
+    ``cache.npz`` with ``cache``) into ``outdir``.  ``generator``: a
+    ``torch.Generator`` on ``device`` for the RANSAC samples."""
+    resolve_device(device)
+    K = np.loadtxt(K_path)
+    grays = _read_grays(image_paths)
+    t0 = time.perf_counter()
+    colors = (imread(image_paths[0], dtype="uint8"), imread(image_paths[1], dtype="uint8"))
+    decode_seconds = time.perf_counter() - t0
+    return run_two_view_arrays(
+        grays, colors, K, image_names=image_paths, outdir=outdir,
+        matching_method=matching_method, min_ratio=min_ratio,
+        ransac_quality=ransac_quality, rsf=rsf, cache=cache, generator=generator,
+        quiet=quiet, ransac_options=ransac_options, ba=ba, distortion=distortion,
+        plots=plots, device=device, decode_seconds=decode_seconds,
+    )
