@@ -10,29 +10,37 @@ Phases, one JSON line each:
                 heightfield with seeded multi-scale noise texture, known
                 K and cameras), plus a 240x320 pair for the CPU check;
 * ``check_K1``  the L2 top-2 kernel against its plain version at
-                X = Y = 28000, D = 144 and on a case full of ties
-                (bit-exact), with CUDA-event times;
+                X = Y = 28000, D = 144, on a case full of ties, and on
+                shapes that reach every branch of the wrapper and both
+                routes of the kernel (D not a multiple of 16, int8, tiny,
+                ragged Y, D above the tensor-core cap), all bit-exact,
+                with CUDA-event times;
 * ``check_K2``, ``check_K3``  the SIFT orientation and descriptor
                 kernels against their plain versions on the real octave
                 gradients and keypoints of the rendered pair (atol 2e-5
-                of the row maximum; uint8 descriptors within 1 LSB);
+                of the row maximum; uint8 descriptors within 1 LSB); K3
+                on octave -1, on a small octave and on the rows whose
+                window the octave's border clips;
 * ``two_view``  the port's array-level ``run_two_view`` on the rendered
                 pair, one cold and one warm run, every kernel's launch
                 count read around the warm run; RANSAC must succeed with
                 >= 100 inliers and recover the rendered relative pose;
 * ``cpu_parity`` the same pipeline on the small pair on the card and on
                 the CPU (plain versions): match counts and consensus agree;
+* ``profile``   one more warm run under ``torch.profiler``: device time
+                by kernel and the device's busy share;
 * ``kernels``   one line for every kernel: launches in the warm run, ms,
-                plain ms, bound ms and what bounds it.
+                plain ms, bound ms and what bounds it, and ``run_ms``,
+                its summed device time over the profiled warm run.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 last the contract line ``{"ok": true, "device": {...}}``.  Any failure
 raises and exits non-zero without that line.  Usage: ``python3
-chip_smoke.py [--ptxas] [--profile DIR]`` (``--ptxas`` prints the
-compiler's register and shared-memory report; ``--profile`` adds a warm
-two-view run under ``torch.profiler``: device time by kernel, the
-device's busy share, and a Chrome trace in DIR).  Nothing of JAX is
-imported.
+chip_smoke.py [--ptxas] [--profile DIR] [--checks-only]`` (``--ptxas``
+prints the compiler's register and shared-memory report; ``--profile``
+also writes the profiled run's Chrome trace into DIR; ``--checks-only``
+stops after the kernel checks, without the contract line).  Nothing of
+JAX is imported.
 """
 
 from __future__ import annotations
@@ -59,6 +67,8 @@ TEX = (220, 330)
 SMALL_H, SMALL_W = 240, 320
 SMALL_TEX = (50, 70)
 SEED = 0
+# index of the small octave K3 is also checked on (0 is octave -1): 256x384
+SMALL_OCTAVE = 4
 
 
 def emit(phase, **kw):
@@ -260,6 +270,41 @@ def k3_bound_ms(L, H_, W_, kx, ky, sigma, R, magnif=3.0):
 # --- phases ---------------------------------------------------------
 
 
+# device functions of each wrapper's C entry point, as the profiler names them
+DEVICE_FUNCTIONS = {
+    "l2nn_top2": ("make_tiles", "row_norms", "top2_wgmma_kernel", "top2_dp4a_kernel"),
+    "sift_orient_hist": ("orient_kernel",),
+    "sift_desc": ("desc_kernel",),
+}
+
+
+def k1_cases(torch, gen):
+    """``(name, x, y)`` beside the main shape: every branch of the
+    wrapper and both routes of the kernel."""
+
+    def u8(n, d):
+        return torch.randint(0, 256, (n, d), generator=gen, device="cuda", dtype=torch.uint8)
+
+    def i8(n, d):
+        return torch.randint(-128, 128, (n, d), generator=gen, device="cuda", dtype=torch.int8)
+
+    # ties: few distinct rows, duplicated database rows
+    base = i8(37, 160)
+    base_u = u8(29, 132)
+    pick = lambda b, n: b[torch.randint(0, b.shape[0], (n,), generator=gen, device="cuda")]
+    return [
+        ("ties_int8_D160", pick(base, 4099), pick(base, 2051)),
+        ("ties_uint8_D132", pick(base_u, 1000), pick(base_u, 517)),
+        ("uint8_D132", u8(4099, 132), u8(2051, 132)),
+        ("int8_D128", i8(3000, 128), i8(1000, 128)),
+        ("tiny", u8(5, 144), u8(3, 144)),
+        ("ragged_Y", u8(1111, 144), u8(777, 144)),
+        ("uint8_D256", u8(2000, 256), u8(300, 256)),
+        ("above_cap_uint8_D320", u8(1500, 320), u8(333, 320)),
+        ("above_cap_int8_D260", i8(700, 260), i8(200, 260)),
+    ]
+
+
 def check_k1(torch, l2nn):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
@@ -267,38 +312,35 @@ def check_k1(torch, l2nn):
     D = 144
     x = torch.randint(0, 256, (X, D), generator=gen, device="cuda", dtype=torch.uint8)
     y = torch.randint(0, 256, (Y, D), generator=gen, device="cuda", dtype=torch.uint8)
-    ik, dk = l2nn.l2_topk2_cuda(x, y)
-    ip, dp = l2nn.l2_topk_mxu(x, y)
-    torch.cuda.synchronize()
-    if not (torch.equal(ik, ip) and torch.equal(dk, dp)):
-        raise AssertionError("K1 l2nn_top2 disagrees with its plain version")
-    # ties: few distinct rows, duplicated database rows, int8 input
-    base = torch.randint(-128, 128, (37, 160), generator=gen, device="cuda", dtype=torch.int8)
-    xt = base[torch.randint(0, 37, (4099,), generator=gen, device="cuda")]
-    yt = base[torch.randint(0, 37, (2051,), generator=gen, device="cuda")]
-    ik2, dk2 = l2nn.l2_topk2_cuda(xt, yt)
-    ip2, dp2 = l2nn.l2_topk_mxu(xt, yt)
-    torch.cuda.synchronize()
-    if not (torch.equal(ik2, ip2) and torch.equal(dk2, dp2)):
-        raise AssertionError("K1 l2nn_top2 disagrees with its plain version on ties")
-    ms = cuda_ms(lambda: l2nn.l2_topk2_cuda(x, y), 5)
+    cases = [("main", x, y)] + k1_cases(torch, gen)
+    for name, xc, yc in cases:
+        ik2, dk2 = l2nn.l2_topk2_cuda(xc, yc)
+        ip2, dp2 = l2nn.l2_topk_mxu(xc, yc)
+        torch.cuda.synchronize()
+        if not (torch.equal(ik2, ip2) and torch.equal(dk2, dp2)):
+            raise AssertionError(f"K1 l2nn_top2 disagrees with its plain version on {name}")
+    ms = cuda_ms(lambda: l2nn.l2_topk2_cuda(x, y), 10)
     plain_ms = cuda_ms(lambda: l2nn.l2_topk_mxu(x, y), 2)
     bound, by = k1_bound_ms(X, Y, D)
     res = {"name": "l2nn_top2", "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound, "bound_by": by, "library_ms": None,
            "shape": {"X": X, "Y": Y, "D": D}}
-    emit("check_K1", exact=True, ties_exact=True, **res)
+    emit("check_K1", exact=True, cases_exact=[c[0] for c in cases], **res)
     return res
 
 
-def octave_inputs(torch, sift, gray):
-    """Octave -1 (the largest) of one image: gradient levels and the
-    detected keypoints, as the main path hands them to the kernels."""
+def octave_inputs(torch, sift, gray, octaves):
+    """Gradient levels and detected keypoints of the octaves with the
+    given indices (0 is octave -1, the largest) of one image, as the
+    main path hands them to the kernels: ``{index: (mod, ang, sel)}``."""
     budgets = sift._octave_budgets(*gray.shape, -1, sift.num_octaves(*gray.shape, -1), 32768)
     first = sift._base_first(torch.as_tensor(gray[None], device="cuda"), -1)
-    _, mod, ang, det = sift._octave_detect(first, 0.0, 10.0, budgets[0])
-    sel = det[0, :4, det[0, 4] > 0]
-    return mod[0], ang[0], sel
+    out = {}
+    for oi in range(max(octaves) + 1):
+        first, mod, ang, det = sift._octave_detect(first, 0.0, 10.0, budgets[oi])
+        if oi in octaves:
+            out[oi] = (mod[0], ang[0], det[0, :4, det[0, 4] > 0])
+    return out
 
 
 def rel_err(a, b):
@@ -334,39 +376,75 @@ def check_k2(torch, so, sift, mod, ang, sel):
     return res, th, av
 
 
-def check_k3(torch, sd, sift, mod, ang, sel, th, av):
+def k3_args(torch, sift, mod, ang, sel, th, av):
+    """The (keypoint, angle) rows of one octave as ``describe`` takes them."""
     rows = av.reshape(-1).nonzero()[:, 0]
     kp = rows // sift.MAX_ANGLES
     kx, ky, ksig = sel[0][kp], sel[1][kp], sel[2][kp]
     lvl = sel[3][kp].to(torch.int32)
     theta = th.reshape(-1)[rows]
     valid = torch.ones_like(kx, dtype=torch.bool)
-    R = sift._r_desc(3.0)
-    args = (mod, ang, kx, ky, ksig, lvl, theta, valid, R, 3.0)
+    return (mod, ang, kx, ky, ksig, lvl, theta, valid, sift._r_desc(3.0), 3.0)
+
+
+def k3_compare(torch, sd, args, name):
+    """Kernel against plain version on one set of rows: ``(err, lsb)``."""
+    valid = args[7]
     uk, rk = sd.desc_cuda(*args, return_raw=True)
     uk2 = sd.desc_cuda(*args)
     rp = sd.desc_raw_plain(*args)
     up = sd.quantize_descriptors(sd.finish_descriptors(rp, valid))
     torch.cuda.synchronize()
     if not torch.equal(uk, uk2):
-        raise AssertionError("K3 sift_desc is not deterministic")
+        raise AssertionError(f"K3 sift_desc is not deterministic on {name}")
     err = rel_err(rk, rp)
     lsb = int((uk.to(torch.int32) - up.to(torch.int32)).abs().max())
     if not (err <= 2e-5 and lsb <= 1):
-        raise AssertionError(f"K3 sift_desc disagrees with its plain version: {err}, {lsb} LSB")
-    ms = cuda_ms(lambda: sd.desc_cuda(*args), 3)
+        raise AssertionError(
+            f"K3 sift_desc disagrees with its plain version on {name}: {err}, {lsb} LSB")
+    return err, lsb
+
+
+def clipped_rows(torch, args):
+    """The rows of ``args`` whose window the octave's border clips."""
+    mod, ang, kx, ky, ksig, lvl, theta, valid, R, magnif = args
+    _, H_, W_ = mod.shape
+    Wr = magnif * ksig * 2.5 * math.sqrt(2.0) + 0.5
+    r = torch.clamp(torch.floor(Wr + 0.5) + 1, max=R)
+    xi, yi = torch.round(kx), torch.round(ky)
+    clip = (xi - r < 0) | (xi + r > W_ - 1) | (yi - r < 0) | (yi + r > H_ - 1)
+    return (mod, ang, *(t[clip] for t in (kx, ky, ksig, lvl, theta, valid)), R, magnif)
+
+
+def check_k3(torch, sd, args, small_args):
+    """``args``: the rows of octave -1 (timed); ``small_args``: those of
+    a small octave."""
+    valid = args[7]
+    clip_args = clipped_rows(torch, args)
+    sets = {"octave_-1": args, "small_octave": small_args, "clipped": clip_args}
+    errs = {}
+    for name, a in sets.items():
+        if a[2].shape[0] == 0:
+            raise AssertionError(f"K3 check set {name} has no rows")
+        errs[name] = k3_compare(torch, sd, a, name)
+    err = max(e for e, _ in errs.values())
+    lsb = max(l for _, l in errs.values())
+    ms = cuda_ms(lambda: sd.desc_cuda(*args), 10)
 
     def plain():
         sd.quantize_descriptors(sd.finish_descriptors(sd.desc_raw_plain(*args), valid))
 
     plain_ms = cuda_ms(plain, 1)
+    mod, kx, ky, ksig, R = args[0], args[2], args[3], args[4], args[8]
     L, H_, W_ = mod.shape
     k = [t.cpu().numpy() for t in (kx, ky, ksig)]
     bound, by = k3_bound_ms(L, H_, W_, *k, R)
     res = {"name": "sift_desc", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound, "bound_by": by, "library_ms": None, "max_lsb": lsb,
            "shape": {"K": int(kx.shape[0]), "L": L, "H": H_, "W": W_}}
-    emit("check_K3", deterministic=True, **res)
+    emit("check_K3", deterministic=True,
+         sets={n: {"rows": int(a[2].shape[0]), "H": a[0].shape[1], "W": a[0].shape[2],
+                   "err": errs[n][0], "lsb": errs[n][1]} for n, a in sets.items()}, **res)
     return res
 
 
@@ -375,7 +453,8 @@ def profile_two_view(torch, run_once, out_dir, warm_s):
     kernel (top 15, device-side events only), their sum as the device's
     busy time, its share of the unprofiled warm run's wall time
     ``warm_s`` (the profiler slows the host side several fold), and a
-    Chrome trace in ``out_dir``."""
+    Chrome trace in ``out_dir`` when that is given.  Returns every
+    wrapper's summed device time in ms (``DEVICE_FUNCTIONS``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -392,11 +471,20 @@ def profile_two_view(torch, run_once, out_dir, warm_s):
         key=lambda r: -r[1],
     )
     busy_ms = sum(r[1] for r in rows)
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "two_view_trace.json"))
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, "two_view_trace.json"))
+    run_ms = {
+        name: sum(ms for key, ms, _ in rows if any(f in key for f in fns))
+        for name, fns in DEVICE_FUNCTIONS.items()
+    }
     emit("profile", warm_wall_ms=warm_s * 1e3, device_busy_ms=busy_ms,
          busy_share=busy_ms / (warm_s * 1e3), n_kernels=sum(r[2] for r in rows),
+         run_ms=run_ms,
          top=[{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:15]])
+    if not all(v > 0 for v in run_ms.values()):
+        raise AssertionError(f"the profiler saw no device time for a kernel: {run_ms}")
+    return run_ms
 
 
 def rotation_angle_deg(Ra, Rb):
@@ -443,11 +531,22 @@ def main(argv):
     emit("render", seconds=time.perf_counter() - t0, shape=[H, W])
 
     res_k1 = check_k1(torch, l2nn)
-    mod, ang, sel = octave_inputs(torch, sift, grays[0])
+    octs = octave_inputs(torch, sift, grays[0], (0, SMALL_OCTAVE))
+    mod, ang, sel = octs[0]
     res_k2, th, av = check_k2(torch, so, sift, mod, ang, sel)
-    res_k3 = check_k3(torch, sd, sift, mod, ang, sel, th, av)
-    del mod, ang, sel, th, av
+    args = k3_args(torch, sift, mod, ang, sel, th, av)
+    mod_s, ang_s, sel_s = octs[SMALL_OCTAVE]
+    lvl_s = torch.clamp(sel_s[3].to(torch.int32), 0, sift.S - 1)
+    ones_s = torch.ones_like(sel_s[0], dtype=torch.bool)
+    th_s, av_s = sift.orientations(mod_s, ang_s, sel_s[0], sel_s[1], sel_s[2], lvl_s, ones_s,
+                                   sift._R_OR)
+    res_k3 = check_k3(torch, sd, args,
+                      k3_args(torch, sift, mod_s, ang_s, sel_s, th_s, av_s))
+    del octs, mod, ang, sel, th, av, args, mod_s, ang_s, sel_s, th_s, av_s
     torch.cuda.empty_cache()
+    if "--checks-only" in argv:
+        emit("done", seconds=time.perf_counter() - t_start, checks_only=True)
+        return 0
 
     def run(device, g, c, k):
         gen = torch.Generator(device=device)
@@ -488,9 +587,9 @@ def main(argv):
         raise AssertionError("triangulated points are not finite or have the wrong shape")
     if not all(v > 0 for v in launches.values()):
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
-    if "--profile" in argv:
-        profile_two_view(torch, lambda: run("cuda", grays, colors, K),
-                         argv[argv.index("--profile") + 1], warm_s)
+    run_ms = profile_two_view(
+        torch, lambda: run("cuda", grays, colors, K),
+        argv[argv.index("--profile") + 1] if "--profile" in argv else None, warm_s)
 
     sg, sc, sk, _ = small
     g_res = run("cuda", sg, sc, sk)["metrics"]
@@ -518,6 +617,7 @@ def main(argv):
             "launches": launches[name], "max_abs_err": res["max_abs_err"],
             "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+            "run_ms": run_ms[name],
         })
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -85,33 +85,40 @@ def rectify_pair(P0, P1, im0, im1, sampling_factor=1.2):
     return r0, r1, idx0, idx1
 
 
-def _rectify_pair_host(P0, P1, im0, im1, sampling_factor):
-    """float64 CPU rectification of numpy images ``(H, W, C)``: same
-    semantics as :func:`rectify_pair`, numpy outputs."""
+def _rectify_pair_f64(P0, P1, im0, im1, sampling_factor, dev):
+    """float64 rectification of numpy images ``(H, W, C)`` on ``dev``:
+    same semantics as :func:`rectify_pair`, with numpy's ``linspace``
+    sample columns and the line's numerator in two roundings (the
+    reference API's arithmetic); numpy outputs."""
     H, W, C = im0.shape
-    F = fundamental_from_cameras(
-        torch.as_tensor(P0, dtype=torch.float64), torch.as_tensor(P1, dtype=torch.float64)
-    ).numpy()
+    f64 = dict(dtype=torch.float64, device=dev)
+    F = fundamental_from_cameras(torch.as_tensor(P0, **f64), torch.as_tensor(P1, **f64))
     extra = int(max(H, W * C) / 2.0)
     S = int(sampling_factor * W)
-    rows = np.arange(-extra, H + extra, dtype=np.float64)
-    origins = np.stack([np.zeros_like(rows), rows, np.ones_like(rows)], -1)
-    lines0 = origins @ F
-    xx = np.linspace(0.0, W - 1.0, S)
-    yy0 = (-lines0[:, 2:3] - lines0[:, 0:1] * xx[None, :]) / lines0[:, 1:2]
-    seeds = np.stack([np.full_like(rows, xx[0]), yy0[:, 0], np.ones_like(rows)], -1)
-    lines1 = seeds @ F.T
-    yy1 = (-lines1[:, 2:3] - lines1[:, 0:1] * xx[None, :]) / lines1[:, 1:2]
+    rows = torch.arange(-extra, H + extra, **f64)
+    ones = torch.ones_like(rows)
+    xx = torch.as_tensor(np.linspace(0.0, W - 1.0, S), **f64)
+
+    def line_y(pts, M):
+        # pts @ M as three products summed in order, one rounding each
+        # (no fused multiply-add), then y = (-l2 - l0 x) / l1
+        lines = pts[:, 0:1] * M[0] + pts[:, 1:2] * M[1] + pts[:, 2:3] * M[2]
+        return (-lines[:, 2:3] - lines[:, 0:1] * xx[None, :]) / lines[:, 1:2]
+
+    yy0 = line_y(torch.stack([torch.zeros_like(rows), rows, ones], -1), F)
+    seeds = torch.stack([torch.full_like(rows, float(xx[0])), yy0[:, 0], ones], -1)
+    yy1 = line_y(seeds, F.T)
+    xi = torch.trunc(xx).to(torch.int32)
 
     def resample(im, yy):
-        xi = np.trunc(xx).astype(np.int32)
-        yi = np.trunc(yy).astype(np.int32)
+        yi = torch.trunc(yy).to(torch.int32)
         valid = (xi[None, :] >= 0) & (xi[None, :] < W) & (yi >= 0) & (yi < H)
         lin = yi * W + xi[None, :]
-        vals = im.reshape(-1, C)[np.where(valid, lin, 0)]
-        vals[~valid] = 0.0
-        idx = np.where(valid, lin, -1).astype(np.int32)
-        return vals, idx
+        flat = torch.as_tensor(np.ascontiguousarray(im), device=dev).reshape(-1, C)
+        vals = flat[torch.where(valid, lin, torch.zeros_like(lin)).long()]
+        vals[~valid] = 0
+        idx = torch.where(valid, lin, torch.full_like(lin, -1))
+        return vals.cpu().numpy(), idx.cpu().numpy()
 
     r0, i0 = resample(im0, yy0)
     r1, i1 = resample(im1, yy1)
@@ -225,9 +232,11 @@ def rectify_pair_quantized(P0, P1, im0, im1, sampling_factor=1.0, device="cuda")
     return r0u, r1u, idxs[0], idxs[1]
 
 
-def image_pair_rectification(P0, P1, im0, im1, sampling_factor=1.2, crop_invalid=True):
-    """Reference-API rectification (float64 on the CPU), cropped to the
-    ``idx != -1`` bounding box."""
+def image_pair_rectification(P0, P1, im0, im1, sampling_factor=1.2, crop_invalid=True,
+                             device="cuda"):
+    """Reference-API rectification (float64 on ``device``, numpy in and
+    out), cropped to the ``idx != -1`` bounding box."""
+    dev = resolve_device(device)
     im0 = np.asarray(im0)
     im1 = np.asarray(im1)
     if im0.shape != im1.shape:
@@ -236,9 +245,9 @@ def image_pair_rectification(P0, P1, im0, im1, sampling_factor=1.2, crop_invalid
     if squeeze:
         im0 = im0[..., None]
         im1 = im1[..., None]
-    r0, r1, ri0, ri1 = _rectify_pair_host(
+    r0, r1, ri0, ri1 = _rectify_pair_f64(
         np.asarray(P0, dtype=np.float64), np.asarray(P1, dtype=np.float64),
-        im0, im1, float(sampling_factor),
+        im0, im1, float(sampling_factor), dev,
     )
     if squeeze:
         r0, r1 = r0[..., 0], r1[..., 0]

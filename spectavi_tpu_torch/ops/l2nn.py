@@ -7,9 +7,10 @@ tensor :func:`l2_topk2` launches the hand-written kernel
 :func:`l2_topk_mxu`.  Both return ``(idx (Y, 2) int32, dist2 (Y, 2)
 int32)`` ascending, with ties to the lower database index.
 
-uint8 input is shifted by -128 into int8, which leaves distances
-unchanged.  The plain version forms ``||y||^2 - 2 y.x + ||x||^2`` with
-a float matmul, exact because every product and partial sum is an
+The plain version shifts uint8 input by -128 into int8, which leaves
+distances unchanged (the kernel's tensor-core route works on the raw
+bytes, for the same reason).  It forms ``||y||^2 - 2 y.x + ||x||^2``
+with a float matmul, exact because every product and partial sum is an
 integer far below 2^24 (float32, TF32 off) or 2^53 (float64), and
 takes the top-k as argmin followed by masked argmins, so ties go to the
 lower index as ``lax.top_k`` gives them.
@@ -67,9 +68,21 @@ def l2_topk_mxu(x, y, k=2):
     return idx, dist
 
 
+# the tensor-core kernel keeps a query tile and a ring of database tiles
+# of D padded to 32 bytes in shared memory: up to this many bytes a row
+_TC_MAX_D = 256
+
+
 def l2_topk2_cuda(x, y):
     """Launch ``csrc/l2nn_top2.cu`` on CUDA byte tensors ``x (X, D)``,
-    ``y (Y, D)`` of one dtype (uint8 or int8), any D."""
+    ``y (Y, D)`` of one dtype (uint8 or int8), any D with
+    ``D * 255**2 < 2**31``.
+
+    The kernel has two routes, chosen by the shape alone: D (padded
+    with zero columns to a multiple of 16, one small copy when it is
+    not one already) up to 256 runs on the int8 tensor cores; a larger
+    D runs on the CUDA cores (``__dp4a``).  A build or launch failure
+    raises; there is no other fallback."""
     global launches
     if not (x.is_cuda and y.is_cuda and x.device == y.device):
         raise ValueError("l2_topk2_cuda needs both tensors on one CUDA device")
@@ -79,24 +92,39 @@ def l2_topk2_cuda(x, y):
         raise ValueError(f"shapes must be (X, D) and (Y, D), got {tuple(x.shape)}/{tuple(y.shape)}")
     if x.shape[0] < 2:
         raise ValueError("top-2 needs at least 2 database rows")
-    x, y = x.contiguous(), y.contiguous()
+    if x.shape[1] * 255**2 >= 2**31:
+        raise ValueError(f"D = {x.shape[1]} overflows the int32 distance")
     X, D = x.shape
     Y = y.shape[0]
     idx = torch.empty((Y, 2), dtype=torch.int32, device=y.device)
     dist = torch.empty((Y, 2), dtype=torch.int32, device=y.device)
     if Y == 0:
         return idx, dist
-    xx = torch.empty(X, dtype=torch.int32, device=x.device)
-    yy = torch.empty(Y, dtype=torch.int32, device=y.device)
+    tensor_cores = D + (-D) % 16 <= _TC_MAX_D
+    if tensor_cores and D % 16:
+        # a zero column adds 0 to every product and norm of the raw bytes
+        x, y = (torch.nn.functional.pad(t, (0, (-D) % 16)) for t in (x, y))
+        D = x.shape[1]
+    x, y = x.contiguous(), y.contiguous()
     lib = _build.load("l2nn_top2")
+    if tensor_cores:
+        # the kernel reads rows as 16-byte words
+        x, y = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, y))
+        lib.l2nn_top2_scratch_bytes.restype = ctypes.c_longlong
+        lib.l2nn_top2_scratch_bytes.argtypes = [ctypes.c_int] * 3
+        n_scratch = lib.l2nn_top2_scratch_bytes(X, Y, D)
+    else:
+        n_scratch = 4 * (X + Y)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=x.device)
     fn = lib.l2nn_top2
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     stream = torch.cuda.current_stream(y.device).cuda_stream
     status = fn(x.data_ptr(), y.data_ptr(), X, Y, D, int(x.dtype == torch.uint8),
-                xx.data_ptr(), yy.data_ptr(), idx.data_ptr(), dist.data_ptr(), stream)
+                int(tensor_cores), scratch.data_ptr(), idx.data_ptr(), dist.data_ptr(),
+                stream)
     _build.check(status, "l2nn_top2")
     launches += 1
     return idx, dist

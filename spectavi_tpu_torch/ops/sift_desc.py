@@ -93,6 +93,47 @@ def desc_raw_plain(mod, ang, kx, ky, sigma, level, theta0, valid, radius, magnif
     return torch.cat(out)
 
 
+def cell_boxes(kx, ky, sigma, theta0, radius, H, W, magnif=3.0):
+    """Pixel bounding boxes of the 16 spatial cells of each row, as the
+    CUDA kernel walks them: ``(K, 16, 4)`` int32 ``(x0, x1, y0, y1)``,
+    inclusive, cell ``by*4 + bx``; a box with ``x1 < x0`` or ``y1 < y0``
+    is empty.
+
+    A cell's bilinear weight ``wy wx`` is nonzero where ``|nx - cx| < 1``
+    and ``|ny - cy| < 1``: a square of side ``2 SBP`` rotated by
+    ``theta0`` about the rotated cell centre, so its axis-aligned box
+    has half-side ``SBP (|cos| + |sin|)``.  A margin of 1e-4 of that
+    plus 0.01 px stands far above the rounding of pixel coordinates.
+    The box is cut to the row's window (radius ``min(radius, floor(Wr +
+    0.5) + 1)`` about ``round(kp)``, outside of which every weight is
+    exactly 0) and to the octave."""
+    f32 = torch.float32
+    kx, ky, sigma, theta0 = (t.to(f32) for t in (kx, ky, sigma, theta0))
+    SBP = magnif * sigma
+    Wr = ((SBP * 5.0) / 2.0) * np.float32(np.sqrt(2.0)) + 0.5
+    r = torch.clamp(torch.floor(Wr + 0.5).to(torch.int32) + 1, max=int(radius))
+    yi = torch.round(ky).to(torch.int32)
+    xi = torch.round(kx).to(torch.int32)
+    ct, st = torch.cos(theta0), torch.sin(theta0)
+    ext = (SBP * (ct.abs() + st.abs())) * np.float32(1.0001) + np.float32(0.01)
+    cells = torch.arange(NBP * NBP, device=kx.device)
+    cy = ((cells // NBP).to(f32) - (NBP - 1) / 2.0)[None, :]
+    cx = ((cells % NBP).to(f32) - (NBP - 1) / 2.0)[None, :]
+    bcx = kx[:, None] + SBP[:, None] * (ct[:, None] * cx - st[:, None] * cy)
+    bcy = ky[:, None] + SBP[:, None] * (st[:, None] * cx + ct[:, None] * cy)
+    e = ext[:, None]
+
+    def lo(c, centre):
+        return torch.maximum(torch.clamp(centre - r, min=0)[:, None],
+                             torch.floor(c - e).to(torch.int32))
+
+    def hi(c, centre, size):
+        return torch.minimum(torch.clamp(centre + r, max=size - 1)[:, None],
+                             torch.ceil(c + e).to(torch.int32))
+
+    return torch.stack([lo(bcx, xi), hi(bcx, xi, W), lo(bcy, yi), hi(bcy, yi, H)], dim=2)
+
+
 def finish_descriptors(raw, valid):
     """vlfeat post-processing: normalize -> clamp 0.2 -> renormalize."""
     n = torch.linalg.vector_norm(raw, dim=1, keepdim=True)
@@ -122,21 +163,24 @@ def desc_cuda(mod, ang, kx, ky, sigma, level, theta0, valid, radius, magnif=3.0,
     mod, ang = mod.contiguous(), ang.contiguous()
     L, H, W = mod.shape
     K = kx.shape[0]
-    meta = torch.stack(
-        [kx, ky, sigma, level.to(torch.float32), theta0, valid.to(torch.float32)], dim=1
-    ).to(device=mod.device, dtype=torch.float32).contiguous()
-    out = torch.empty((K, 128), dtype=torch.uint8, device=mod.device)
-    raw = torch.empty((K, 128), dtype=torch.float32, device=mod.device) if return_raw else None
+    dev = mod.device
+    f32 = [t.to(device=dev, dtype=torch.float32).contiguous() for t in (kx, ky, sigma, theta0)]
+    level = level.to(device=dev, dtype=torch.int32).contiguous()
+    valid = valid.to(device=dev, dtype=torch.bool).contiguous()
+    out = torch.empty((K, 128), dtype=torch.uint8, device=dev)
+    raw = torch.empty((K, 128), dtype=torch.float32, device=dev) if return_raw else None
     if K > 0:
         fn = _build.load("sift_desc").sift_desc
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        stream = torch.cuda.current_stream(mod.device).cuda_stream
-        status = fn(mod.data_ptr(), ang.data_ptr(), L, H, W, meta.data_ptr(), K, int(radius),
-                    float(magnif), out.data_ptr(), raw.data_ptr() if return_raw else None,
-                    stream)
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                                  ctypes.c_void_p, ctypes.c_void_p,
+                                                  ctypes.c_void_p])
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(mod.data_ptr(), ang.data_ptr(), L, H, W, f32[0].data_ptr(),
+                    f32[1].data_ptr(), f32[2].data_ptr(), level.data_ptr(), f32[3].data_ptr(),
+                    valid.data_ptr(), K, int(radius), float(magnif), out.data_ptr(),
+                    raw.data_ptr() if return_raw else None, stream)
         _build.check(status, "sift_desc")
         launches += 1
     return (out, raw) if return_raw else out

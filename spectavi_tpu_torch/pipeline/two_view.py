@@ -143,9 +143,11 @@ def step3_estimate_essential(xd, yd, K, ransac_quality="ultra", options=None, ge
 
 
 def step4_triangulate(step3_out, image_paths=None, outdir=None, quiet=False, ba=False,
-                      distortion=False, images=None):
-    """DLT triangulation of the inliers (float64); PLY output with vertex
-    colors sampled from ``images`` (raw decodes) when given."""
+                      distortion=False, images=None, device="cuda"):
+    """DLT triangulation of the inliers (float64 on ``device``); PLY
+    output with vertex colors sampled from ``images`` (raw decodes) when
+    given."""
+    dev = resolve_device(device)
     if ba or distortion:
         raise NotImplementedError(
             "the two-view bundle-adjustment polish is not ported yet (ROADMAP.md item A11)"
@@ -155,7 +157,7 @@ def step4_triangulate(step3_out, image_paths=None, outdir=None, quiet=False, ba=
     P1 = ransac["camera"]
     P0 = np.hstack((np.eye(3), np.zeros((3, 1))))
     with Timer("step4-computation", quiet):
-        RX = mvg.dlt_triangulate(P0, P1, x0[idx], x1[idx])
+        RX = mvg.dlt_triangulate(P0, P1, x0[idx], x1[idx], device=dev)
     RX = RX / RX[..., -1:].reshape(-1, 1)
     rgb = None
     if images is None and image_paths is not None:
@@ -206,7 +208,7 @@ def step5_rectify(ransac, K, image_paths, outdir=None, sampling_factor=1.0, quie
         else:
             r0, r1, ri0, ri1 = mvg.image_pair_rectification(
                 P0, P1, _max_normalized(im0), _max_normalized(im1),
-                sampling_factor=sampling_factor,
+                sampling_factor=sampling_factor, device=dev,
             )
             r0u = np.clip(r0 * 255, 0, 255).astype("uint8")
             r1u = np.clip(r1 * 255, 0, 255).astype("uint8")
@@ -298,7 +300,7 @@ def run_two_view_arrays(grays, colors, K, image_names=("im0.png", "im1.png"), ou
         print(" Singular Values ratio score: ", np.abs(s[0] - s[1]) / np.abs(s[0] + s[1]))
     metrics["decode_seconds"] = float(decode_seconds)
     t0 = time.perf_counter()
-    RX, ransac = step4_triangulate(step3_out, None, outdir, quiet, images=colors)
+    RX, ransac = step4_triangulate(step3_out, None, outdir, quiet, images=colors, device=dev)
     metrics["step4_seconds"] = time.perf_counter() - t0
     metrics["n_points"] = int(RX.shape[0])
     t0 = time.perf_counter()

@@ -2,6 +2,12 @@
 ``spectavi_tpu_torch.mvg`` against ``spectavi_tpu.mvg`` in float64 on
 the same numpy inputs (RANSAC: ``test_torch_ransac.py``).
 
+The reference-API entry points (``seven_point_algorithm``,
+``dlt_triangulate``, ``dlt_reprojection_error``,
+``image_pair_rectification``, and step 4 of the pipeline) take
+``device``: on ``"cpu"`` they agree with their JAX twins, and with no
+``device`` and no CUDA they raise instead of running on the CPU.
+
 The closed forms are ported operation for operation, so they agree to a
 few ulps, well inside the tolerances ``tests/test_mvg.py`` pins (7-point
 epipolar residual < 1e-10).
@@ -15,7 +21,9 @@ import pytest
 import torch
 
 from spectavi_tpu import mvg as jmvg
+from spectavi_tpu.pipeline.two_view import step4_triangulate as jax_step4
 from spectavi_tpu_torch import mvg as tmvg
+from spectavi_tpu_torch.pipeline.two_view import step4_triangulate
 
 torch.set_num_threads(2)
 
@@ -95,7 +103,7 @@ def test_seven_point_algorithm_wrapper(rng):
     for _ in range(20):
         x0 = rng.standard_normal((7, 3))
         x1 = rng.standard_normal((7, 3))
-        FF = tmvg.seven_point_algorithm(x0, x1)
+        FF = tmvg.seven_point_algorithm(x0, x1, device="cpu")
         FFj = jmvg.seven_point_algorithm(x0, x1)
         assert FF.shape == FFj.shape and FF.shape[0] % 3 == 0
         for i in range(FF.shape[0] // 3):
@@ -108,7 +116,7 @@ def test_seven_point_algorithm_wrapper(rng):
                 for G in FFj.reshape(-1, 3, 3) for s in (1, -1)
             ) < 1e-7
     with pytest.raises(TypeError):
-        tmvg.seven_point_algorithm(np.zeros((6, 2)), np.zeros((6, 2)))
+        tmvg.seven_point_algorithm(np.zeros((6, 2)), np.zeros((6, 2)), device="cpu")
 
 
 def _scene(rng, n=300, outliers=0.25, noise=2e-5):
@@ -139,16 +147,95 @@ def test_triangulation_paths(rng):
     _close(et, ej, 1e-12)
     np.testing.assert_array_equal(ft.numpy(), np.asarray(fj))
     h = lambda a: np.hstack([a, np.ones((a.shape[0], 1))])
-    Xd = tmvg.dlt_triangulate(P0, P1, h(x0), h(x1))
+    Xd = tmvg.dlt_triangulate(P0, P1, h(x0), h(x1), device="cpu")
     Xdj = jmvg.dlt_triangulate(P0, P1, h(x0), h(x1))
     np.testing.assert_allclose(Xd / Xd[:, 3:], Xdj / Xdj[:, 3:], atol=1e-9)
     np.testing.assert_allclose(
-        tmvg.dlt_reprojection_error(P0, P1, h(x0), h(x1)),
+        tmvg.dlt_reprojection_error(P0, P1, h(x0), h(x1), device="cpu"),
         jmvg.dlt_reprojection_error(P0, P1, h(x0), h(x1)), atol=1e-12,
     )
     with pytest.raises(TypeError):
-        tmvg.dlt_triangulate(P0[:, :3], P1, h(x0), h(x1))
+        tmvg.dlt_triangulate(P0[:, :3], P1, h(x0), h(x1), device="cpu")
     with pytest.raises(TypeError):
-        tmvg.dlt_triangulate(P0, P1, x0, x1)
+        tmvg.dlt_triangulate(P0, P1, x0, x1, device="cpu")
     with pytest.raises(TypeError):
-        tmvg.dlt_triangulate(P0, P1, h(x0), h(x1)[:-1])
+        tmvg.dlt_triangulate(P0, P1, h(x0), h(x1)[:-1], device="cpu")
+
+
+def _entry_point_case(name, rng):
+    """``(port call taking device=..., JAX twin's result, compare)`` of
+    one reference-API entry point on seeded inputs."""
+    x0, x1 = _scene(rng, 60, outliers=0.0)
+    h = lambda a: np.hstack([a, np.ones((a.shape[0], 1))])
+    P0 = np.hstack([np.eye(3), np.zeros((3, 1))])
+    P1 = np.hstack([np.eye(3), np.array([[-1.0], [0.1], [0.2]])])
+
+    def close(atol):
+        return lambda got, want: np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+    if name == "seven_point_algorithm":
+        def roots(got, want):
+            # the same real roots up to scale and sign, as in the wrapper test
+            assert got.shape == want.shape
+            for F in got.reshape(-1, 3, 3):
+                Fn = F / np.linalg.norm(F)
+                assert min(np.abs(Fn - s * G / np.linalg.norm(G)).max()
+                           for G in want.reshape(-1, 3, 3) for s in (1, -1)) < 1e-7
+
+        a, b = x0[:7], x1[:7]
+        return (lambda **kw: tmvg.seven_point_algorithm(a, b, **kw),
+                jmvg.seven_point_algorithm(a, b), roots)
+    if name == "dlt_triangulate":
+        def points(got, want):
+            np.testing.assert_allclose(got / got[:, 3:], want / want[:, 3:], atol=1e-9)
+
+        return (lambda **kw: tmvg.dlt_triangulate(P0, P1, h(x0), h(x1), **kw),
+                jmvg.dlt_triangulate(P0, P1, h(x0), h(x1)), points)
+    if name == "dlt_reprojection_error":
+        return (lambda **kw: tmvg.dlt_reprojection_error(P0, P1, h(x0), h(x1), **kw),
+                jmvg.dlt_reprojection_error(P0, P1, h(x0), h(x1)), close(1e-12))
+    if name == "image_pair_rectification":
+        K = np.array([[176.0, 0, 80], [0, 176.0, 60], [0, 0, 1]])
+        a = 0.15
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+        Q0 = K @ P0
+        Q1 = K @ np.hstack([R, np.array([[-1.0], [0.05], [0.1]])])
+        im0, im1 = rng.random((2, 120, 160, 3))
+
+        def rect(got, want):
+            # float64 geometry on both sides; F comes from each side's
+            # own SVD, so a sample on an integer boundary may move: the
+            # crops agree and at most 0.5% of the index map differs
+            for g, w in zip(got, want):
+                assert g.shape == w.shape and g.dtype == w.dtype
+            for g, w in zip(got[2:], want[2:]):
+                assert (g != w).mean() <= 0.005
+
+        return (lambda **kw: tmvg.image_pair_rectification(Q0, Q1, im0, im1, **kw),
+                jmvg.image_pair_rectification(Q0, Q1, im0, im1), rect)
+    if name == "step4_triangulate":
+        n = x0.shape[0]
+        ransac = {"inlier_idx": np.arange(0, n, 2), "camera": P1}
+        step3 = (ransac, h(x0), h(x1), np.zeros((n, 4)), np.zeros((n, 4)))
+        return (lambda **kw: step4_triangulate(step3, quiet=True, **kw)[0],
+                jax_step4(step3, quiet=True)[0], close(1e-9))
+    raise AssertionError(name)
+
+
+ENTRY_POINTS = ["seven_point_algorithm", "dlt_triangulate", "dlt_reprojection_error",
+                "image_pair_rectification", "step4_triangulate"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_point_on_cpu_matches_jax(rng, name):
+    call, want, compare = _entry_point_case(name, rng)
+    compare(call(device="cpu"), want)
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_point_defaults_to_the_card(rng, name, monkeypatch):
+    # with no CUDA device the default must raise, never run on the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call, _, _ = _entry_point_case(name, rng)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()

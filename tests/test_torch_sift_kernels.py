@@ -140,3 +140,114 @@ def test_describe_vs_xla_route(rng):
     want_u8 = np.minimum(np.floor(512.0 * want), 255.0)
     assert u8.dtype == torch.uint8
     assert np.abs(u8.numpy().astype(np.int32) - want_u8).max() <= 1
+
+
+def _cell_inputs(rng, K=24):
+    """Seeded rows for the cell-box tests: all scales the detector gives
+    an octave, every rotation, a third of the rows within a few pixels
+    of the octave's border."""
+    S, H, W = 2, 96, 160
+    mod = rng.random((S, H, W)).astype(np.float32)
+    ang = (rng.random((S, H, W)) * 2 * np.pi).astype(np.float32)
+    ky = rng.uniform(0, H - 1, K).astype(np.float32)
+    kx = rng.uniform(0, W - 1, K).astype(np.float32)
+    near = np.arange(K) % 3 == 0
+    ky[near] = np.where(rng.random(near.sum()) < 0.5, rng.uniform(0, 6, near.sum()),
+                        H - 1 - rng.uniform(0, 6, near.sum()))
+    kx[near & (np.arange(K) % 2 == 0)] = rng.uniform(0, 5)
+    sig = rng.uniform(1.6, 3.2, K).astype(np.float32)
+    th0 = (rng.random(K) * 2 * np.pi).astype(np.float32)
+    th0[:4] = np.float32([0.0, np.pi / 2, np.pi / 4, 3 * np.pi / 2])
+    lvl = rng.integers(0, S, K).astype(np.int32)
+    return mod, ang, kx, ky, sig, th0, lvl
+
+
+def _row_geometry(kx, ky, sig, th0, H, W, radius, magnif, f):
+    """Per-pixel terms of one row over the whole octave, computed in
+    dtype ``f`` with the plain version's formulas: ``(sel, nx, ny, dx,
+    dy, SBP)``."""
+    kx, ky, sig, th0 = f(kx), f(ky), f(sig), f(th0)
+    SBP = f(magnif) * sig
+    Wr = SBP * f(2.5) * f(np.sqrt(2.0)) + f(0.5)
+    yi, xi = int(np.round(ky)), int(np.round(kx))
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    dy, dx = ys.astype(f) - ky, xs.astype(f) - kx
+    ct, st = np.cos(th0), np.sin(th0)
+    nx = (ct * dx + st * dy) / SBP
+    ny = (-st * dx + ct * dy) / SBP
+    sel = ((np.abs(dx) <= Wr) & (np.abs(dy) <= Wr)
+           & (np.abs(ys - yi) <= radius) & (np.abs(xs - xi) <= radius))
+    return sel, nx, ny, dx, dy, SBP
+
+
+def test_cell_boxes_hold_every_weighted_pixel(rng):
+    magnif = 3.0
+    mod, ang, kx, ky, sig, th0, lvl = _cell_inputs(rng)
+    _, H, W = mod.shape
+    r = _r_desc(magnif)
+    boxes = sift_desc.cell_boxes(*_torch_args(kx, ky, sig, th0), r, H, W, magnif).numpy()
+    assert boxes.shape == (kx.shape[0], 16, 4) and boxes.dtype == np.int32
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    n_weighted = 0
+    for k in range(kx.shape[0]):
+        sel, nx, ny, *_ = _row_geometry(kx[k], ky[k], sig[k], th0[k], H, W, r, magnif, np.float32)
+        for cell in range(16):
+            cy, cx = cell // 4 - 1.5, cell % 4 - 1.5
+            wy = np.maximum(0, 1 - np.abs(ny - np.float32(cy)))
+            wx = np.maximum(0, 1 - np.abs(nx - np.float32(cx)))
+            weighted = sel & (wy * wx > 0)
+            x0, x1, y0, y1 = boxes[k, cell]
+            inside = (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
+            assert not (weighted & ~inside).any(), (k, cell)
+            n_weighted += int(weighted.sum())
+            # and is no larger than the rotated cell needs: side 2 sqrt(2) SBP
+            side = 2 * np.sqrt(2.0) * magnif * sig[k] + 4
+            assert x1 - x0 + 1 <= side and y1 - y0 + 1 <= side
+    assert n_weighted > 10000
+
+
+def test_cellwise_box_sums_equal_desc_raw_plain(rng):
+    """The CUDA kernel's algorithm in numpy float64: per cell, over its
+    box only, each pixel adds to the two orientation bins ``floor(nt)``
+    and ``floor(nt) + 1 mod 8``.  Equal to the plain version (8 clamped
+    bins per pixel over the whole window) to 1e-6 of the row maximum."""
+    magnif = 3.0
+    mod, ang, kx, ky, sig, th0, lvl = _cell_inputs(rng)
+    _, H, W = mod.shape
+    r = _r_desc(magnif)
+    boxes = sift_desc.cell_boxes(*_torch_args(kx, ky, sig, th0), r, H, W, magnif).numpy()
+    K = kx.shape[0]
+    got = np.zeros((K, 128))
+    f = np.float64
+    for k in range(K):
+        sel, nx, ny, dx, dy, SBP = _row_geometry(kx[k], ky[k], sig[k], th0[k], H, W, r, magnif, f)
+        win = np.exp(-(dx * dx + dy * dy) / (2.0 * (2.0 * SBP) ** 2))
+        c = np.where(sel, mod[lvl[k]].astype(f) * win, 0.0)
+        nt = 8.0 * np.remainder(ang[lvl[k]].astype(f) - f(th0[k]), 2 * np.pi) / (2 * np.pi)
+        fl = np.floor(nt)
+        o0 = fl.astype(np.int64) & 7
+        for cell in range(16):
+            cy, cx = cell // 4 - 1.5, cell % 4 - 1.5
+            x0, x1, y0, y1 = boxes[k, cell]
+            if x1 < x0 or y1 < y0:
+                continue
+            b = (slice(y0, y1 + 1), slice(x0, x1 + 1))
+            v = (c[b] * np.maximum(0, 1 - np.abs(ny[b] - cy))
+                 * np.maximum(0, 1 - np.abs(nx[b] - cx)))
+            a0 = v * (1.0 - (nt[b] - fl[b]))
+            a1 = v * (1.0 - ((fl[b] + 1.0) - nt[b]))
+            np.add.at(got[k], cell * 8 + o0[b].ravel(), a0.ravel())
+            np.add.at(got[k], cell * 8 + ((o0[b] + 1) & 7).ravel(), a1.ravel())
+    t64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64))
+    want = sift_desc.desc_raw_plain(
+        t64(mod), t64(ang), t64(kx), t64(ky), t64(sig), torch.as_tensor(lvl), t64(th0),
+        torch.ones(K, dtype=torch.bool), r, magnif,
+    ).numpy()
+    assert want.max() > 0
+    scale = np.abs(want).max(axis=1, keepdims=True)
+    np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=1e-6)
+    # and the float32 plain version the kernel is held against on the card
+    want32 = sift_desc.desc_raw_plain(
+        *_torch_args(mod, ang, kx, ky, sig, lvl, th0), torch.ones(K, dtype=torch.bool), r, magnif,
+    ).numpy()
+    np.testing.assert_allclose(got / scale, want32 / scale, rtol=0, atol=2e-5)
