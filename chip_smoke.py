@@ -18,13 +18,26 @@ Phases, one JSON line each:
 * ``check_K2``, ``check_K3``  the SIFT orientation and descriptor
                 kernels against their plain versions on the real octave
                 gradients and keypoints of the rendered pair (atol 2e-5
-                of the row maximum; uint8 descriptors within 1 LSB); K3
+                of the row maximum; uint8 descriptors within 1 LSB), each
                 on octave -1, on a small octave and on the rows whose
-                window the octave's border clips;
+                window the octave's border clips, with identical bytes
+                on a second launch;
 * ``two_view``  the port's array-level ``run_two_view`` on the rendered
                 pair, one cold and one warm run, every kernel's launch
                 count read around the warm run; RANSAC must succeed with
                 >= 100 inliers and recover the rendered relative pose;
+* ``two_view_matchers``  the same path at 1024x1536 with
+                ``matching_method="cascading-hash"`` and ``"bruteforce"``
+                (SIFT, then step 2 on the card), held to the same RANSAC
+                and pose limits;
+* ``matchers``  every matcher of ``spectavi_tpu_torch.match`` on the
+                quantized 144-byte rows of the rendered pair, on the
+                card: exact L1 top-2 against itself on the CPU and an
+                int64 check; IVF and sharded L2 within the reference's
+                budgets against the exact answers, the cascade hash on
+                the first neighbours that pass the ratio test; k-medians
+                and ``nn_bruteforce`` (p = 0.5, and ``mu > 0``) on a
+                4000-row subset; each with its milliseconds;
 * ``cpu_parity`` the same pipeline on the small pair on the card and on
                 the CPU (plain versions): match counts and consensus agree;
 * ``profile``   one more warm run under ``torch.profiler``: device time
@@ -66,6 +79,11 @@ H, W = 2048, 3072
 TEX = (220, 330)
 SMALL_H, SMALL_W = 240, 320
 SMALL_TEX = (50, 70)
+# the pair the other matchers' two-view runs take
+MID_H, MID_W = 1024, 1536
+MID_TEX = (110, 165)
+# rows of the matchers whose dense (Y, X, D) work is taken in small blocks
+SUBSET_ROWS = 4000
 SEED = 0
 # index of the small octave K3 is also checked on (0 is octave -1): 256x384
 SMALL_OCTAVE = 4
@@ -349,30 +367,61 @@ def rel_err(a, b):
     return float(((a - b).abs() / scale).max())
 
 
-def check_k2(torch, so, sift, mod, ang, sel):
-    kx, ky, ksig = sel[0], sel[1], sel[2]
+def k2_clipped_rows(torch, so, args):
+    """The rows of ``args`` whose box the octave's border clips."""
+    mod, ang, kx, ky, ksig, lvl, valid, R = args
+    _, H_, W_ = mod.shape
+    r = torch.clamp(torch.clamp(torch.floor(3.0 * (1.5 * ksig)), min=1.0), max=R)
+    xi, yi = torch.round(kx), torch.round(ky)
+    clip = (xi - r < 0) | (xi + r > W_ - 1) | (yi - r < 0) | (yi + r > H_ - 1)
+    return (mod, ang, *(t[clip] for t in (kx, ky, ksig, lvl)), valid, R)
+
+
+def k2_args(torch, sift, mod, ang, sel):
+    """The detections of one octave as ``orient_hist`` takes them on the
+    main path (``valid`` None: every row)."""
     lvl = torch.clamp(sel[3].to(torch.int32), 0, sift.S - 1)
+    return (mod, ang, sel[0], sel[1], sel[2], lvl, None, sift._R_OR)
+
+
+def check_k2(torch, so, args, small_args):
+    """``args``: the rows of octave -1 (timed); ``small_args``: those of
+    a small octave.  Returns the result and octave -1's plain
+    orientations for the descriptor check."""
+    sets = {"octave_-1": args, "small_octave": small_args,
+            "clipped": k2_clipped_rows(torch, so, args)}
+    errs, plain = {}, {}
+    for name, a in sets.items():
+        if a[2].shape[0] == 0:
+            raise AssertionError(f"K2 check set {name} has no rows")
+        ones = torch.ones_like(a[2], dtype=torch.bool)
+        hk = so.orient_hist_cuda(*a)
+        hk2 = so.orient_hist_cuda(*a[:6], ones, a[7])
+        hp = so.orient_hist_plain(*a[:6], ones, a[7])
+        torch.cuda.synchronize()
+        if not torch.equal(hk, hk2):
+            raise AssertionError(f"K2 sift_orient_hist is not deterministic on {name}")
+        errs[name] = rel_err(hk, hp)
+        plain[name] = hp
+        if not errs[name] <= 2e-5:
+            raise AssertionError(
+                f"K2 sift_orient_hist disagrees with its plain version on {name}: {errs[name]}")
+    mod, ang, kx, ky, ksig, lvl, _, R = args
     ones = torch.ones_like(kx, dtype=torch.bool)
-    args = (mod, ang, kx, ky, ksig, lvl, ones, sift._R_OR)
-    hk = so.orient_hist_cuda(*args)
-    hk2 = so.orient_hist_cuda(*args)
-    hp = so.orient_hist_plain(*args)
-    torch.cuda.synchronize()
-    if not torch.equal(hk, hk2):
-        raise AssertionError("K2 sift_orient_hist is not deterministic")
-    err = rel_err(hk, hp)
-    if not err <= 2e-5:
-        raise AssertionError(f"K2 sift_orient_hist disagrees with its plain version: {err}")
-    ms = cuda_ms(lambda: so.orient_hist_cuda(*args), 5)
-    plain_ms = cuda_ms(lambda: so.orient_hist_plain(*args), 1)
+    ms = cuda_ms(lambda: so.orient_hist_cuda(*args), 20)
+    plain_ms = cuda_ms(lambda: so.orient_hist_plain(mod, ang, kx, ky, ksig, lvl, ones, R), 1)
     L, H_, W_ = mod.shape
     k = [t.cpu().numpy() for t in (kx, ky, ksig)]
     bound, by = k2_bound_ms(L, H_, W_, *k)
-    res = {"name": "sift_orient_hist", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound, "bound_by": by, "library_ms": None,
-           "shape": {"K": int(kx.shape[0]), "L": L, "H": H_, "W": W_}}
-    emit("check_K2", deterministic=True, **res)
-    th, av = so.orientation_peaks(hp, ones)
+    box = so.window_box(kx, ky, ksig, R, H_, W_)
+    box_px = int(((box[:, 1] - box[:, 0] + 1) * (box[:, 3] - box[:, 2] + 1)).sum())
+    res = {"name": "sift_orient_hist", "max_abs_err": max(errs.values()), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
+           "shape": {"K": int(kx.shape[0]), "L": L, "H": H_, "W": W_}, "box_pixels": box_px}
+    emit("check_K2", deterministic=True,
+         sets={n: {"rows": int(a[2].shape[0]), "H": a[0].shape[1], "W": a[0].shape[2],
+                   "err": errs[n]} for n, a in sets.items()}, **res)
+    th, av = so.orientation_peaks(plain["octave_-1"], ones)
     return res, th, av
 
 
@@ -446,6 +495,126 @@ def check_k3(torch, sd, args, small_args):
          sets={n: {"rows": int(a[2].shape[0]), "H": a[0].shape[1], "W": a[0].shape[2],
                    "err": errs[n][0], "lsb": errs[n][1]} for n, a in sets.items()}, **res)
     return res
+
+
+def host_ms(torch, fn):
+    """Milliseconds of the second of two calls of a numpy-in, numpy-out
+    function, host clock around work that ends in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def check_matchers(torch, np, match, qx, qy):
+    """Every matcher of the package on the card, on the quantized rows
+    ``qx, qy (n, 144)`` (integers in [-128, 127] as float) of the
+    rendered pair; budgets are the reference suite's."""
+    X, Y = qx.shape[0], qy.shape[0]
+    xb, yb = (qx + 128).astype(np.uint8), (qy + 128).astype(np.uint8)
+    xf, yf = qx.astype(np.float32), qy.astype(np.float32)
+    ms, counts = {}, {}
+
+    # exact L1 top-2: the card against the CPU and against an int64 check
+    (ei, ed), ms["nn_bruteforcel1k2"] = host_ms(
+        torch, lambda: match.nn_bruteforcel1k2(xb, yb, device="cuda"))
+    q = np.linspace(0, Y - 1, 256).astype(np.int64)
+    ci, cd = match.nn_bruteforcel1k2(xb, yb[q], device="cpu")
+    if not (np.array_equal(ei[q], ci) and np.array_equal(ed[q], cd)):
+        raise AssertionError("nn_bruteforcel1k2 on the card differs from itself on the CPU")
+    xl = torch.as_tensor(xb, device="cuda").to(torch.int64)
+    yl = torch.as_tensor(yb[q], device="cuda").to(torch.int64)
+    for s0 in range(0, len(q), 32):
+        d = (yl[s0 : s0 + 32, None, :] - xl[None, :, :]).abs().sum(-1)
+        vals, order = torch.sort(d, dim=1, stable=True)
+        if not (np.array_equal(order[:, :2].cpu().numpy(), ei[q[s0 : s0 + 32]].astype(np.int64))
+                and np.array_equal(vals[:, :2].cpu().numpy(), ed[q[s0 : s0 + 32]].astype(np.int64))):
+            raise AssertionError("nn_bruteforcel1k2 differs from the int64 check")
+    del xl, yl, d, vals, order
+
+    # approximate matchers within their budgets against the exact answers
+    (hi, hd, stats), ms["nn_cascading_hash"] = host_ms(
+        torch, lambda: match.nn_cascading_hash(qx, qy, with_stats=True, device="cuda"))
+    # the reference's budget (<= 40% of the slots differ) is for clustered
+    # rows; a SIFT row's second neighbour is close to arbitrary, so here it
+    # is held on the slots step 2 keeps: the first neighbour of the queries
+    # whose exact neighbours pass the ratio test
+    kept = ed[:, 1] >= 1.75 * np.maximum(ed[:, 0], 1e-12)
+    counts["nn_cascading_hash_mismatches"] = int((hi != ei).sum())
+    counts["nn_cascading_hash_kept_queries"] = int(kept.sum())
+    counts["nn_cascading_hash_kept_mismatches"] = int((hi[kept, 0] != ei[kept, 0]).sum())
+    counts["nn_cascading_hash_dropped_member_slots"] = stats["dropped_member_slots"]
+    if not (kept.sum() >= 100
+            and counts["nn_cascading_hash_kept_mismatches"] <= round(0.4 * kept.sum())):
+        raise AssertionError(f"cascade hash outside its budget: {counts}")
+    li, _ = match.nn_l2k2(xb, yb, device="cuda")
+    (vi, vd), ms["nn_ivf"] = host_ms(torch, lambda: match.nn_ivf(xf, yf, device="cuda"))
+    counts["nn_ivf_mismatches"] = int((vi != li).sum())
+    if not (counts["nn_ivf_mismatches"] <= 2 * round(0.3 * Y) and np.isfinite(vd).all()
+            and (vd[:, 0] <= vd[:, 1]).all()):
+        raise AssertionError(f"IVF outside its budget: {counts}")
+    ai, ms["ann"] = host_ms(torch, lambda: match.ann(xf, yf, device="cuda"))
+    counts["ann_mismatches"] = int((ai != li).sum())
+    if counts["ann_mismatches"] > 2 * round(0.3 * Y):
+        raise AssertionError(f"sharded L2 outside its budget: {counts}")
+
+    # the dense matchers on a subset
+    n = SUBSET_ROWS
+    xs, ys = xf[:: max(1, X // n)][:n], yf[:: max(1, Y // n)][:n]
+    (ki, _), ms["nn_kmedians"] = host_ms(
+        torch, lambda: match.nn_kmedians(xs, xs, 2, c=30, device="cuda"))
+    (bi, bd), ms["nn_bruteforce_p1"] = host_ms(
+        torch, lambda: match.nn_bruteforce(xs, xs, k=2, p=1.0, device="cuda"))
+    counts["nn_kmedians_mismatches"] = int((ki != bi).sum())
+    if counts["nn_kmedians_mismatches"] > 2 * round(0.4 * len(xs)):
+        raise AssertionError(f"k-medians outside its budget: {counts}")
+    (pi_, pd), ms["nn_bruteforce_p0.5"] = host_ms(
+        torch, lambda: match.nn_bruteforce(xs, ys, k=2, p=0.5, device="cuda"))
+    x64 = torch.as_tensor(xs, device="cuda").double()
+    y64 = torch.as_tensor(ys[:64], device="cuda").double()
+    vals, order = torch.sort((y64[:, None, :] - x64[None]).abs().sqrt().sum(-1), dim=1,
+                             stable=True)
+    counts["nn_bruteforce_p0.5_agreement"] = float(
+        (order[:, :2].cpu().numpy() == pi_[:64].astype(np.int64)).mean())
+    if not (counts["nn_bruteforce_p0.5_agreement"] >= 0.99
+            and np.allclose(pd[:64], vals[:, :2].cpu().numpy(), rtol=1e-4)):
+        raise AssertionError(f"nn_bruteforce p = 0.5 differs from the float64 check: {counts}")
+    (ui, ud), ms["nn_bruteforce_mu"] = host_ms(
+        torch, lambda: match.nn_bruteforce(xs, ys, k=2, p=1.0, mu=4.0, device="cuda"))
+    zi, zd = match.nn_bruteforce(xs, ys, k=2, p=1.0, device="cuda")
+    genuine = np.abs(ys[:, None, :].astype(np.float64) - xs[ui.astype(np.int64)]).sum(-1)
+    counts["nn_bruteforce_mu_agreement"] = float((ui == zi).mean())
+    if not ((ud[:, 0] <= ud[:, 1]).all() and (ui[:, 0] != ui[:, 1]).all()
+            and np.allclose(ud, genuine, rtol=1e-5) and (ud[:, 0] >= zd[:, 0] - 1e-3).all()):
+        raise AssertionError("nn_bruteforce with mu > 0 returned invalid neighbours")
+    emit("matchers", rows=[X, Y], D=int(qx.shape[1]), subset_rows=len(xs), ms=ms, **counts)
+
+
+def pose_errors(np, P1, R_gt, t_gt):
+    """Rotation and translation-direction errors in degrees."""
+    rot_err = rotation_angle_deg(P1[:, :3], R_gt)
+    t_dir = P1[:, 3] / np.linalg.norm(P1[:, 3])
+    t_err = float(np.degrees(np.arccos(np.clip(abs(t_dir @ (t_gt / np.linalg.norm(t_gt))), -1, 1))))
+    return rot_err, t_err
+
+
+def check_two_view(np, res, R_gt, t_gt):
+    """The gates of a two-view run on a rendered pair; returns the pose
+    errors."""
+    m = res["metrics"]
+    rot_err, t_err = pose_errors(np, res["ransac"]["camera"], R_gt, t_gt)
+    pts = res["points"]
+    if not (m["ransac_success"] and m["n_inliers"] >= 100):
+        raise AssertionError(
+            f"RANSAC did not succeed with >= 100 inliers ({m['matching_method']})")
+    if not (rot_err < 1.0 and t_err < 3.0):
+        raise AssertionError(f"recovered pose off ({m['matching_method']}): rotation {rot_err} "
+                             f"deg, translation {t_err} deg")
+    if not (pts.shape == (m["n_inliers"], 4) and np.isfinite(pts).all()):
+        raise AssertionError("triangulated points are not finite or have the wrong shape")
+    return rot_err, t_err
 
 
 def profile_two_view(torch, run_once, out_dir, warm_s):
@@ -533,26 +702,24 @@ def main(argv):
     res_k1 = check_k1(torch, l2nn)
     octs = octave_inputs(torch, sift, grays[0], (0, SMALL_OCTAVE))
     mod, ang, sel = octs[0]
-    res_k2, th, av = check_k2(torch, so, sift, mod, ang, sel)
-    args = k3_args(torch, sift, mod, ang, sel, th, av)
     mod_s, ang_s, sel_s = octs[SMALL_OCTAVE]
-    lvl_s = torch.clamp(sel_s[3].to(torch.int32), 0, sift.S - 1)
-    ones_s = torch.ones_like(sel_s[0], dtype=torch.bool)
-    th_s, av_s = sift.orientations(mod_s, ang_s, sel_s[0], sel_s[1], sel_s[2], lvl_s, ones_s,
-                                   sift._R_OR)
+    args_s = k2_args(torch, sift, mod_s, ang_s, sel_s)
+    res_k2, th, av = check_k2(torch, so, k2_args(torch, sift, mod, ang, sel), args_s)
+    args = k3_args(torch, sift, mod, ang, sel, th, av)
+    th_s, av_s = sift.orientations(*args_s)
     res_k3 = check_k3(torch, sd, args,
                       k3_args(torch, sift, mod_s, ang_s, sel_s, th_s, av_s))
-    del octs, mod, ang, sel, th, av, args, mod_s, ang_s, sel_s, th_s, av_s
+    del octs, mod, ang, sel, th, av, args, args_s, mod_s, ang_s, sel_s, th_s, av_s
     torch.cuda.empty_cache()
     if "--checks-only" in argv:
         emit("done", seconds=time.perf_counter() - t_start, checks_only=True)
         return 0
 
-    def run(device, g, c, k):
+    def run(device, g, c, k, matching_method="auto"):
         gen = torch.Generator(device=device)
         gen.manual_seed(SEED)
         return run_two_view_arrays(g, c, k, outdir=None, quiet=True, generator=gen,
-                                   device=device)
+                                   matching_method=matching_method, device=device)
 
     t0 = time.perf_counter()
     cold = run("cuda", grays, colors, K)
@@ -567,11 +734,7 @@ def main(argv):
     warm_s = time.perf_counter() - t0
     launches = {name: mod_.launches for name, mod_ in wrappers.items()}
     m = warm["metrics"]
-    P1 = warm["ransac"]["camera"]
-    rot_err = rotation_angle_deg(P1[:, :3], R_gt)
-    t_dir = P1[:, 3] / np.linalg.norm(P1[:, 3])
-    t_err = float(np.degrees(np.arccos(np.clip(abs(t_dir @ (t_gt / np.linalg.norm(t_gt))), -1, 1))))
-    pts = warm["points"]
+    rot_err, t_err = pose_errors(np, warm["ransac"]["camera"], R_gt, t_gt)
     emit("two_view", cold_seconds=cold_s, warm_seconds=warm_s,
          keypoints=m["keypoints"], n_matches=m["n_matches"], consensus=m["consensus"],
          n_inliers=m["n_inliers"], ransac_success=m["ransac_success"],
@@ -579,21 +742,49 @@ def main(argv):
          cold_steps={k: v for k, v in cold["metrics"].items() if k.endswith("_seconds")},
          rotation_err_deg=rot_err, translation_err_deg=t_err, launches=launches,
          rectified_shape=list(warm["rectified"][0].shape))
-    if not (m["ransac_success"] and m["n_inliers"] >= 100):
-        raise AssertionError("RANSAC did not succeed with >= 100 inliers on the rendered pair")
-    if not (rot_err < 1.0 and t_err < 3.0):
-        raise AssertionError(f"recovered pose off: rotation {rot_err} deg, translation {t_err} deg")
-    if not (pts.shape == (m["n_inliers"], 4) and np.isfinite(pts).all()):
-        raise AssertionError("triangulated points are not finite or have the wrong shape")
+    check_two_view(np, warm, R_gt, t_gt)
     if not all(v > 0 for v in launches.values()):
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
     run_ms = profile_two_view(
         torch, lambda: run("cuda", grays, colors, K),
         argv[argv.index("--profile") + 1] if "--profile" in argv else None, warm_s)
 
+    # the other matchers of step 2: SIFT, then the matcher, both on the card
+    mg, mc, mk, (mR, mt_) = render_pair(MID_H, MID_W, "cuda", MID_TEX)
+    by_method = {}
+    for method in ("cascading-hash", "bruteforce"):
+        for mod_ in wrappers.values():
+            mod_.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run("cuda", mg, mc, mk, method)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        mm = res["metrics"]
+        n_launch = {name: mod_.launches for name, mod_ in wrappers.items()}
+        r_err, tr_err = check_two_view(np, res, mR, mt_)
+        if not (mm["matching_method"] == method and mm["fused_frontend"] is False
+                and n_launch["sift_orient_hist"] > 0 and n_launch["sift_desc"] > 0):
+            raise AssertionError(f"the {method} run did not take the unfused path: {mm}, {n_launch}")
+        by_method[method] = {
+            "seconds": seconds, "keypoints": mm["keypoints"], "n_matches": mm["n_matches"],
+            "consensus": mm["consensus"], "n_inliers": mm["n_inliers"],
+            "step2_seconds": mm["step2_seconds"], "rotation_err_deg": r_err,
+            "translation_err_deg": tr_err, "launches": n_launch}
+    emit("two_view_matchers", shape=[MID_H, MID_W], **by_method)
+
+    from spectavi_tpu_torch import match
+    from spectavi_tpu_torch.features import (normalize_to_ubyte_and_multiple_16_dim,
+                                             sift_filter_batch)
+
+    rows = sift_filter_batch(grays, device="cuda")
+    check_matchers(torch, np, match, *(normalize_to_ubyte_and_multiple_16_dim(r) for r in rows))
+    del rows
+    torch.cuda.empty_cache()
+
     sg, sc, sk, _ = small
-    g_res = run("cuda", sg, sc, sk)["metrics"]
-    c_res = run("cpu", sg, sc, sk)["metrics"]
+    g_res = run("cuda", sg, sc, sk, "l2-mxu")["metrics"]
+    c_res = run("cpu", sg, sc, sk, "l2-mxu")["metrics"]
     emit("cpu_parity", shape=[SMALL_H, SMALL_W],
          cuda={k: g_res[k] for k in ("keypoints", "n_matches", "consensus")},
          cpu={k: c_res[k] for k in ("keypoints", "n_matches", "consensus")})

@@ -38,3 +38,13 @@ def resolve_device(device="cuda"):
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def seeded_generator(generator, device):
+    """``generator`` itself, or when it is None a new ``torch.Generator``
+    on ``device`` with seed 0: the matchers that draw random objects
+    give the same answer on every call unless the caller says otherwise."""
+    if generator is None:
+        generator = _torch.Generator(device=device)
+        generator.manual_seed(0)
+    return generator

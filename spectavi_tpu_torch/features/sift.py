@@ -352,8 +352,8 @@ def orientations(mod, ang, kp_x, kp_y, kp_sigma, kp_is, kp_valid, radius):
     """Dominant orientations per keypoint (vlfeat: 36-bin histogram over
     the window, Gaussian sigma 1.5 sigma, 6x circular box smoothing,
     peaks >= 0.8 max with parabolic refinement, up to 4).  The histogram
-    is the CUDA kernel on the card.  Returns ``(angles (K, 4), avalid
-    (K, 4))``."""
+    is the CUDA kernel on the card.  ``kp_valid`` None means every row.
+    Returns ``(angles (K, 4), avalid (K, 4))``."""
     hist = orient_hist(mod, ang, kp_x, kp_y, kp_sigma, kp_is, kp_valid, radius)
     return orientation_peaks(hist, kp_valid)
 
@@ -390,9 +390,8 @@ def _orient_jobs(det_jobs, grads):
     for bi, oi, det_sel, n_kp in det_jobs:
         mod, ang = grads[oi]
         kis = torch.clamp(det_sel[3].to(torch.int32), 0, S - 1)
-        valid = torch.ones(n_kp, dtype=torch.bool, device=det_sel.device)
         angles[(bi, oi)] = orientations(
-            mod[bi], ang[bi], det_sel[0], det_sel[1], det_sel[2], kis, valid, _R_OR
+            mod[bi], ang[bi], det_sel[0], det_sel[1], det_sel[2], kis, None, _R_OR
         )
     return angles
 

@@ -4,7 +4,9 @@ Usage:
 
     python -m spectavi_tpu_torch.pipeline.ex01 IM0 IM1 K.txt [--outdir DIR]
         [--ransac_quality {low,medium,high,ultra,uber}]
-        [--min_ratio R] [--rsf F] [--cache] [--seed N] [--device cuda|cpu]
+        [--matching_method {auto,bruteforce,cascading-hash,l2-mxu}]
+        [--min_ratio R] [--rsf F] [--cache] [--plots] [--seed N]
+        [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ def main(argv=None):
         "--matching_method",
         default="auto",
         choices=["auto", "bruteforce", "cascading-hash", "l2-mxu"],
-        help="'auto' = the exact L2 top-2 matcher (the only one ported so far)",
+        help="'auto' = the exact L2 top-2 kernel on the card, the cascade hash "
+             "with --device cpu",
     )
     parser.add_argument("--outdir", default="ex01_out", type=str)
     parser.add_argument("--rsf", default=1.0, type=float)
@@ -42,7 +45,7 @@ def main(argv=None):
     parser.add_argument("--distortion", action="store_true",
                         help="radial lens model during --ba (not ported yet)")
     parser.add_argument("--plots", action="store_true",
-                        help="keypoint/match visualizations (not ported yet)")
+                        help="also save keypoint/match visualizations (needs matplotlib)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
 

@@ -3,19 +3,20 @@
 Port of ``spectavi_tpu/pipeline/two_view.py``, same five steps:
 
 1. SIFT keypoints + descriptors on both images;
-2. top-2 exact L2 matching + inverted-Lowe ratio test on squared
-   distances (``d2/d1 >= min_ratio^2``);
+2. top-2 matching + inverted-Lowe ratio test ``d2/d1 >= min_ratio``
+   (``min_ratio^2`` for the squared distances of ``l2-mxu``); the
+   matcher is ``l2-mxu`` (exact squared L2, the CUDA kernel),
+   ``bruteforce`` (exact L1) or ``cascading-hash``;
 3. essential-matrix RANSAC on K^-1-normalized points;
 4. DLT triangulation of the inliers -> sparse PLY cloud;
 5. epipolar rectification with ``P = K [R|t]``.
 
-On CUDA, steps 1+2 run as one device-resident front end
-(:func:`step12_fused_device`): descriptors stay on the card from SIFT
-through quantization to the matcher.  :func:`run_two_view` reads the
-image files and K; :func:`run_two_view_arrays` is the array-level core
-that takes decoded images.  Only the ``l2-mxu`` matcher is ported;
-``cascading-hash``, ``bruteforce``, ``ba=True`` and ``plots=True`` raise
-``NotImplementedError`` (ROADMAP.md items A10-A13).
+On CUDA with ``l2-mxu``, steps 1+2 run as one device-resident front
+end (:func:`step12_fused_device`): descriptors stay on the card from
+SIFT through quantization to the matcher.  :func:`run_two_view` reads
+the image files and K; :func:`run_two_view_arrays` is the array-level
+core that takes decoded images.  ``ba=True`` raises
+``NotImplementedError`` (ROADMAP.md item A11).
 """
 
 from __future__ import annotations
@@ -30,23 +31,21 @@ from spectavi_tpu_torch import mvg, resolve_device
 from spectavi_tpu_torch.features import normalize_to_ubyte_and_multiple_16_dim, sift_filter_batch
 from spectavi_tpu_torch.pipeline.io import Timer, imread, write_ply
 
-_NOT_PORTED = {
-    "cascading-hash": "the cascading-hash matcher is not ported yet (ROADMAP.md item A12)",
-    "bruteforce": "the L1 brute-force matcher is not ported yet (ROADMAP.md item A12)",
-}
-
 
 def homogeneous(x):
     return np.hstack((x, np.ones((x.shape[0], 1))))
 
 
-def resolve_matching_method(matching_method):
-    """``"auto"`` is the exact L2 top-2 matcher, the port's only one."""
+MATCHING_METHODS = ("l2-mxu", "bruteforce", "cascading-hash")
+
+
+def resolve_matching_method(matching_method, device="cuda"):
+    """Resolve the ``"auto"`` matcher as the JAX package does: the exact
+    L2 top-2 kernel on the card, the reference example's cascade hash
+    when the caller asked for the CPU."""
     if matching_method == "auto":
-        return "l2-mxu"
-    if matching_method in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[matching_method])
-    if matching_method != "l2-mxu":
+        return "l2-mxu" if torch.device(device).type == "cuda" else "cascading-hash"
+    if matching_method not in MATCHING_METHODS:
         raise ValueError(matching_method)
     return matching_method
 
@@ -65,22 +64,26 @@ def step1_sift_detect(image_paths, quiet=False, device="cuda", images=None):
 
 def step2_match_keypoints(siftkps, matching_method="auto", min_ratio=1.75, quiet=False,
                           device="cuda"):
-    """Host-quantized 132-col rows, exact L2 top-2, ratio test.  Returns
-    the matched rows ``(xd, yd)``."""
-    from spectavi_tpu_torch.match import nn_l2k2
+    """Host-quantized 132-col rows, top-2 matching by the chosen matcher,
+    ratio test.  Returns the matched rows ``(xd, yd)``."""
+    from spectavi_tpu_torch.match import nn_bruteforcel1k2, nn_cascading_hash, nn_l2k2
 
     x, y = siftkps
-    resolve_matching_method(matching_method)
+    matching_method = resolve_matching_method(matching_method, device)
     # the full 132-col rows are quantized and matched, as the reference
     # does: the de-meaned x, y, sigma, angle act as a weak spatial prior
     _x = normalize_to_ubyte_and_multiple_16_dim(x)
     _y = normalize_to_ubyte_and_multiple_16_dim(y)
     with Timer("step2-computation", quiet):
-        nn_idx, nn_dist = nn_l2k2(
-            (_x + 128).astype("uint8"), (_y + 128).astype("uint8"), device=device
-        )
+        if matching_method == "cascading-hash":
+            nn_idx, nn_dist = nn_cascading_hash(_x, _y, device=device)
+        else:
+            nn = nn_bruteforcel1k2 if matching_method == "bruteforce" else nn_l2k2
+            nn_idx, nn_dist = nn((_x + 128).astype("uint8"), (_y + 128).astype("uint8"),
+                                 device=device)
     ratio = nn_dist[:, 1] / np.maximum(nn_dist[:, 0].astype("float64"), 1e-12)
-    pass_idx = ratio >= min_ratio**2  # squared-L2 distances, squared threshold
+    # nn_l2k2 returns squared L2 distances, so its threshold is squared too
+    pass_idx = ratio >= (min_ratio**2 if matching_method == "l2-mxu" else min_ratio)
     idx0 = nn_idx[:, 0].astype(np.int64)
     return x[idx0[pass_idx]], y[pass_idx]
 
@@ -235,8 +238,6 @@ def run_two_view_arrays(grays, colors, K, image_names=("im0.png", "im1.png"), ou
     ``outdir`` is set, are named after ``image_names``.  Returns the
     same dict as :func:`run_two_view`."""
     dev = resolve_device(device)
-    if plots:
-        raise NotImplementedError("keypoint/match plots are not ported yet (ROADMAP.md item A10)")
     if ba or distortion:
         raise NotImplementedError(
             "the two-view bundle-adjustment polish is not ported yet (ROADMAP.md item A11)"
@@ -244,7 +245,7 @@ def run_two_view_arrays(grays, colors, K, image_names=("im0.png", "im1.png"), ou
     if outdir is not None:
         os.makedirs(outdir, exist_ok=True)
     K = np.asarray(K, dtype=np.float64)
-    matching_method = resolve_matching_method(matching_method)
+    matching_method = resolve_matching_method(matching_method, dev)
     metrics = {
         "images": [str(p) for p in image_names],
         "matching_method": matching_method,
@@ -258,7 +259,7 @@ def run_two_view_arrays(grays, colors, K, image_names=("im0.png", "im1.png"), ou
         step2_out = (data["xd"], data["yd"])
         metrics["match_cache_hit"] = True
     if step2_out is None:
-        fused = dev.type == "cuda"
+        fused = matching_method == "l2-mxu" and dev.type == "cuda"
         metrics["fused_frontend"] = fused
         if fused:
             t0 = time.perf_counter()
@@ -280,6 +281,13 @@ def run_two_view_arrays(grays, colors, K, image_names=("im0.png", "im1.png"), ou
             print("sift 2 #: ", kps[1].shape[0])
         if cache and cache_file:
             np.savez_compressed(cache_file, xd=step2_out[0], yd=step2_out[1])
+        if plots and outdir is not None:
+            from spectavi_tpu_torch.pipeline.viz import save_keypoint_plot, save_match_plot
+
+            save_keypoint_plot(grays[0], grays[1], kps[0], kps[1],
+                               os.path.join(outdir, "step1-keypoints.png"))
+            save_match_plot(grays[0], grays[1], step2_out[0], step2_out[1],
+                            os.path.join(outdir, "step2-matches.png"))
 
     t0 = time.perf_counter()
     step3_out = step3_estimate_essential(
@@ -329,7 +337,8 @@ def run_two_view(image_paths, K_path, outdir="ex01_out", matching_method="auto",
     """Full ex01 pipeline from image files and a ``K.txt``; returns
     ``{"matches", "ransac", "points", "rectified", "metrics"}`` and
     writes ``sparse_inliers.ply``, ``rect-*``, ``metrics.json`` (and
-    ``cache.npz`` with ``cache``) into ``outdir``.  ``generator``: a
+    ``cache.npz`` with ``cache``, ``step1-keypoints.png`` and
+    ``step2-matches.png`` with ``plots``) into ``outdir``.  ``generator``: a
     ``torch.Generator`` on ``device`` for the RANSAC samples."""
     resolve_device(device)
     K = np.loadtxt(K_path)

@@ -84,6 +84,51 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert spectavi_tpu_torch.resolve_device("cpu").type == "cpu"
 
 
+_F = np.zeros((40, 16), np.float32)
+_B = np.zeros((40, 16), np.uint8)
+MATCHER_CALLS = {
+    "nn_bruteforce": lambda m: m.nn_bruteforce(_F, _F),
+    "nn_bruteforce_mu": lambda m: m.nn_bruteforce(_F, _F, mu=1.0),
+    "l1_topk2_xla": lambda m: m.l1_topk2_xla(_B, _B),
+    "nn_bruteforcel1k2": lambda m: m.nn_bruteforcel1k2(_B, _B),
+    "nn_cascading_hash": lambda m: m.nn_cascading_hash(_F, _F, m=4),
+    "nn_cascading_hash_fallback": lambda m: m.nn_cascading_hash(_F, _F),
+    "kmedians": lambda m: m.kmedians(_F, 3),
+    "nn_kmedians": lambda m: m.nn_kmedians(_F, _F, 2),
+    "kmeans_cells": lambda m: m.ivf.kmeans_cells(_F, 4),
+    "probe_cells": lambda m: m.ivf.probe_cells(_F, _F[:4], 2),
+    "nn_ivf": lambda m: m.nn_ivf(_F, _F),
+    "ann": lambda m: m.ann(_F, _F),
+    "ann_hnswlib": lambda m: m.ann_hnswlib(_F, _F),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MATCHER_CALLS))
+def test_matchers_raise_without_cuda(monkeypatch, name):
+    from spectavi_tpu_torch import match
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MATCHER_CALLS[name](match)
+
+
+def test_step2_raises_without_cuda(monkeypatch):
+    from spectavi_tpu_torch.pipeline.two_view import step2_match_keypoints
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rows = (100 * np.random.default_rng(0).random((40, 132))).astype(np.float32)
+    for method in ("auto", "l2-mxu", "bruteforce", "cascading-hash"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            step2_match_keypoints((rows, rows), method, quiet=True)
+
+
+def test_new_modules_are_walked():
+    names = _modules()
+    for name in ("match.ann", "match.bruteforce", "match.cascade_hash", "match.ivf",
+                 "match.kmedians", "pipeline.viz"):
+        assert "spectavi_tpu_torch." + name in names
+
+
 def test_precision_pin():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False

@@ -3,6 +3,10 @@ histograms, ``csrc/sift_orient.cu``; descriptors, ``csrc/sift_desc.cu``)
 against the JAX package's Pallas kernels in interpret mode and against
 its XLA route (``orientations``, ``descriptors``).
 
+Also the geometry the CUDA kernels walk (``window_box``,
+``cell_boxes``) against the plain versions' selections, the kernels'
+algorithms in numpy, and the wrappers' argument checks.
+
 The inputs are those of ``tests/test_sift.py``'s kernel tests, where
 every window lies inside the Pallas patch, so both sides sum the same
 pixels.  Tolerance: atol 2e-5 relative to each row's maximum (float32
@@ -12,6 +16,7 @@ sums of up to ~10^4 terms in different orders).
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
@@ -105,6 +110,150 @@ def test_orientations_vs_xla_route(rng):
         np.where(av.numpy(), th.numpy(), 0), np.where(np.asarray(av_j), np.asarray(th_j), 0),
         atol=1e-4,
     )
+
+
+def _box_inputs(rng, K=40):
+    """Seeded rows for the window-box tests: every scale the detector
+    gives an octave up to the largest (``Wr`` = 20), a third of the rows
+    within a few pixels of the octave's border, and centres at and next
+    to a half pixel, where ``round`` goes either way."""
+    S, H, W = 2, 72, 120
+    mod = rng.random((S, H, W)).astype(np.float32)
+    ang = (rng.random((S, H, W)) * 2 * np.pi).astype(np.float32)
+    ky = rng.uniform(0, H - 1, K).astype(np.float32)
+    kx = rng.uniform(0, W - 1, K).astype(np.float32)
+    near = np.arange(K) % 3 == 0
+    ky[near] = np.where(rng.random(near.sum()) < 0.5, rng.uniform(0, 6, near.sum()),
+                        H - 1 - rng.uniform(0, 6, near.sum()))
+    kx[near & (np.arange(K) % 2 == 0)] = rng.uniform(0, 5)
+    kx[1:7] = np.float32([30.5, 31.5, 30.4999, 31.5001, 0.5, W - 1.5])
+    ky[4:10] = np.float32([20.5, 21.5, 20.4999, 21.5001, 0.5, H - 1.5])
+    sig = rng.uniform(0.2, 4.52, K).astype(np.float32)
+    sig[:3] = np.float32([4.52, 0.2, 4.4444447])  # Wr = 20, 1 and floor(20.0000...)
+    lvl = rng.integers(0, S, K).astype(np.int32)
+    return mod, ang, kx, ky, sig, lvl
+
+
+def _counted(kx, ky, sig, H, W, radius, f=np.float32):
+    """The plain version's selection of one row over the whole octave,
+    in dtype ``f``: ``(sel, r2)``."""
+    kx, ky, sig = f(kx), f(ky), f(sig)
+    sigmaw = f(1.5) * sig
+    Wr = max(np.floor(f(3.0) * sigmaw), f(1.0))
+    yi, xi = int(np.round(ky)), int(np.round(kx))
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    dy, dx = ys.astype(f) - ky, xs.astype(f) - kx
+    r2 = dx * dx + dy * dy
+    sel = ((np.abs(ys - yi) <= radius) & (np.abs(xs - xi) <= radius)
+           & (r2 < Wr * Wr + f(0.6)))
+    return sel, r2
+
+
+def test_window_box_holds_every_counted_pixel(rng):
+    mod, ang, kx, ky, sig, lvl = _box_inputs(rng)
+    _, H, W = mod.shape
+    boxes = sift_orient.window_box(*_torch_args(kx, ky, sig), _R_OR, H, W).numpy()
+    assert boxes.shape == (kx.shape[0], 4) and boxes.dtype == np.int32
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    Wr = np.maximum(np.floor(np.float32(3.0) * (np.float32(1.5) * sig)), 1.0)
+    assert Wr.max() == 20 and Wr.min() == 1 and _R_OR == 21
+    n_counted = 0
+    for k in range(kx.shape[0]):
+        sel, _ = _counted(kx[k], ky[k], sig[k], H, W, _R_OR)
+        x0, x1, y0, y1 = boxes[k]
+        inside = (xs >= x0) & (xs <= x1) & (ys >= y0) & (ys <= y1)
+        assert not (sel & ~inside).any(), k
+        n_counted += int(sel.sum())
+        # and is the square of radius Wr, no larger
+        assert x1 - x0 + 1 <= 2 * Wr[k] + 1 and y1 - y0 + 1 <= 2 * Wr[k] + 1
+        # a smaller radius than Wr cuts the box as it cuts the window
+        small = sift_orient.window_box(*_torch_args(kx[k:k + 1], ky[k:k + 1], sig[k:k + 1]),
+                                       5, H, W).numpy()[0]
+        sel5, _ = _counted(kx[k], ky[k], sig[k], H, W, 5)
+        in5 = (xs >= small[0]) & (xs <= small[1]) & (ys >= small[2]) & (ys <= small[3])
+        assert not (sel5 & ~in5).any(), k
+    assert n_counted > 5000
+
+
+def test_lanewise_box_sums_equal_orient_hist_plain(rng):
+    """The CUDA kernel's algorithm in numpy float64: over the row's box
+    only, pixel ``p`` of the box in raster order goes to lane ``p % 32``,
+    a lane adds into its own 36 bins in the order of its pixels, and the
+    32 lanes are summed bin by bin.  Equal to the plain version (all 36
+    bins over the whole window) to 1e-6 of the row maximum, and to the
+    float32 plain version at the tolerance the kernel is held to."""
+    mod, ang, kx, ky, sig, lvl = _box_inputs(rng)
+    _, H, W = mod.shape
+    K = kx.shape[0]
+    boxes = sift_orient.window_box(*_torch_args(kx, ky, sig), _R_OR, H, W).numpy()
+    f = np.float64
+    got = np.zeros((K, 36))
+    for k in range(K):
+        sel, r2 = _counted(kx[k], ky[k], sig[k], H, W, _R_OR, f)
+        x0, x1, y0, y1 = boxes[k]
+        b = (slice(y0, y1 + 1), slice(x0, x1 + 1))
+        den = 2.0 * (1.5 * f(sig[k])) ** 2
+        c = np.where(sel[b], mod[lvl[k]][b].astype(f) * np.exp(-r2[b] / den), 0.0).ravel()
+        bins = (np.floor(36.0 * ang[lvl[k]][b].astype(f) / (2 * np.pi)).astype(np.int64)
+                % 36).ravel()
+        lanes = np.zeros((32, 36))
+        np.add.at(lanes, (np.arange(c.size) % 32, bins), c)
+        got[k] = lanes.sum(0)
+    ones = torch.ones(K, dtype=torch.bool)
+    t64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64))
+    want = sift_orient.orient_hist_plain(
+        t64(mod), t64(ang), t64(kx), t64(ky), t64(sig), torch.as_tensor(lvl), ones, _R_OR
+    ).numpy()
+    assert want.max() > 0
+    scale = np.abs(want).max(axis=1, keepdims=True)
+    np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=1e-6)
+    want32 = sift_orient.orient_hist_plain(
+        *_torch_args(mod, ang, kx, ky, sig, lvl), ones, _R_OR
+    ).numpy()
+    np.testing.assert_allclose(got / scale, want32 / scale, rtol=0, atol=2e-5)
+
+
+def test_orient_hist_valid_none_means_every_row(rng):
+    mod, ang, kx, ky, sig, lvl = _box_inputs(rng, K=12)
+    args = _torch_args(mod, ang, kx, ky, sig, lvl)
+    ones = torch.ones(12, dtype=torch.bool)
+    assert torch.equal(sift_orient.orient_hist(*args, None, _R_OR),
+                       sift_orient.orient_hist(*args, ones, _R_OR))
+    th0, av0 = sift.orientations(*args, None, _R_OR)
+    th1, av1 = sift.orientations(*args, ones, _R_OR)
+    assert torch.equal(th0, th1) and torch.equal(av0, av1)
+
+
+@pytest.mark.parametrize("case,error", [
+    ("float64_levels", TypeError), ("level_shapes_differ", ValueError),
+    ("two_dim_levels", ValueError), ("float_level", TypeError), ("short_kx", ValueError),
+    ("int_valid", TypeError), ("short_valid", ValueError), ("cpu_tensors", ValueError),
+])
+def test_orient_hist_cuda_argument_checks(rng, case, error):
+    """The wrapper checks what the kernel's pointers assume before it
+    looks for the card; complete CPU arguments are refused last."""
+    mod, ang, kx, ky, sig, lvl = _torch_args(*_box_inputs(rng, K=12))
+    valid = torch.ones(12, dtype=torch.bool)
+    if case == "float64_levels":
+        mod = mod.double()
+    elif case == "level_shapes_differ":
+        ang = ang[:, :-1]
+    elif case == "two_dim_levels":
+        mod, ang = mod[0], ang[0]
+    elif case == "float_level":
+        lvl = lvl.float()
+    elif case == "short_kx":
+        kx = kx[:-1]
+    elif case == "int_valid":
+        valid = valid.to(torch.int32)
+    elif case == "short_valid":
+        valid = valid[:-1]
+    with pytest.raises(error):
+        sift_orient.orient_hist_cuda(mod, ang, kx, ky, sig, lvl, valid, _R_OR)
+    if case == "cpu_tensors":
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            sift_orient.orient_hist_cuda(mod, ang, kx, ky, sig, lvl, None, _R_OR)
+    assert sift_orient.launches == 0
 
 
 def _desc_inputs(rng, rows=9):

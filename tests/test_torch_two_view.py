@@ -9,6 +9,15 @@ renderer of ``tests/test_sfm_pipeline.py``), both on the CPU.
   threefry), so match counts agree within 1%, consensus within 0.02,
   and the inlier sets overlap with Jaccard >= 0.95; ``metrics.json``
   has the same keys and the rectified outputs the same shapes.
+* ``run_two_view_arrays(device="cpu")`` with ``matching_method``
+  ``"auto"`` (the cascade hash on the CPU, as in the JAX package),
+  ``"cascading-hash"`` and ``"bruteforce"`` against the JAX package's
+  run on the same images.  The exact L1 matcher gives the same matches
+  on both sides: counts within 1%, consensus within 0.02.  The cascade
+  hash draws its hyperplanes from each package's own generator
+  (``torch.randn`` against ``jax.random.normal``), so the two sides
+  re-rank different candidate sets: counts within 3%, consensus within
+  0.04.
 * ``rectify_pair_quantized`` given the same cameras: float32 geometry on
   both sides, index maps exact and pixels within 1 LSB.
 * ``step12_fused_device`` (SIFT -> on-device quantization -> exact L2
@@ -39,7 +48,12 @@ from spectavi_tpu.pipeline.two_view import run_two_view as jax_run_two_view
 from spectavi_tpu.pipeline.two_view import step12_fused_device as jax_step12
 from spectavi_tpu_torch.mvg import rectify_pair, rectify_pair_quantized
 from spectavi_tpu_torch.pipeline.io import imread
-from spectavi_tpu_torch.pipeline.two_view import run_two_view, step12_fused_device
+from spectavi_tpu_torch.pipeline.two_view import (
+    resolve_matching_method,
+    run_two_view,
+    run_two_view_arrays,
+    step12_fused_device,
+)
 
 torch.set_num_threads(2)
 
@@ -156,8 +170,72 @@ def test_rectify_pair_tensor_api_vs_jax(pair):
 
 
 def test_unported_options_raise(pair):
+    # every matcher of the JAX package is ported; the bundle-adjustment
+    # polish is what is left
     _, paths, kfile = pair
-    for kw in ({"matching_method": "cascading-hash"}, {"matching_method": "bruteforce"},
-               {"ba": True}, {"plots": True}):
+    for kw in ({"ba": True}, {"distortion": True}):
         with pytest.raises(NotImplementedError):
             run_two_view(paths, kfile, outdir=None, device="cpu", quiet=True, **kw)
+    with pytest.raises(ValueError):
+        run_two_view(paths, kfile, outdir=None, device="cpu", quiet=True,
+                     matching_method="hnsw")
+
+
+def test_resolve_matching_method():
+    assert resolve_matching_method("auto", "cuda") == "l2-mxu"
+    assert resolve_matching_method("auto", torch.device("cuda", 0)) == "l2-mxu"
+    assert resolve_matching_method("auto", "cpu") == "cascading-hash"
+    for name in ("l2-mxu", "bruteforce", "cascading-hash"):
+        assert resolve_matching_method(name, "cpu") == name
+        assert resolve_matching_method(name, "cuda") == name
+    with pytest.raises(ValueError):
+        resolve_matching_method("l1", "cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_run(matching_method):
+    _, paths, kfile = rendered_pair()
+    return jax_run_two_view(paths, kfile, outdir=None, matching_method=matching_method,
+                            key=jax.random.PRNGKey(0), quiet=True, ransac_options=OPTS)["metrics"]
+
+
+def _decoded(paths):
+    grays = [imread(p, dtype="float32", force_grayscale=True) for p in paths]
+    colors = [imread(p, dtype="uint8") for p in paths]
+    return grays, colors
+
+
+@pytest.mark.parametrize("matching_method,resolved,count_tol,consensus_tol", [
+    ("auto", "cascading-hash", 0.03, 0.04),
+    ("cascading-hash", "cascading-hash", 0.03, 0.04),
+    ("bruteforce", "bruteforce", 0.01, 0.02),
+])
+def test_run_two_view_arrays_matchers_vs_jax(pair, matching_method, resolved, count_tol,
+                                             consensus_tol):
+    _, paths, kfile = pair
+    grays, colors = _decoded(paths)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    rt = run_two_view_arrays(grays, colors, np.loadtxt(kfile), outdir=None,
+                             matching_method=matching_method, generator=gen, quiet=True,
+                             ransac_options=OPTS, device="cpu")
+    mt, mj = rt["metrics"], _jax_run(resolved)
+    # as the JAX package reports on its CPU backend
+    assert mt["matching_method"] == resolved == mj["matching_method"]
+    assert mt["fused_frontend"] is False and mj["fused_frontend"] is False
+    assert mt["keypoints"] == mj["keypoints"]
+    assert mt["n_matches"] >= 30 and mt["ransac_success"]
+    assert abs(mt["n_matches"] - mj["n_matches"]) <= max(1, count_tol * mj["n_matches"])
+    assert abs(mt["consensus"] - mj["consensus"]) <= consensus_tol
+    assert rt["points"].shape == (mt["n_inliers"], 4) and np.isfinite(rt["points"]).all()
+
+
+def test_plots_are_written(pair, tmp_path):
+    pytest.importorskip("matplotlib")
+    _, paths, kfile = pair
+    grays, colors = _decoded(paths)
+    run_two_view_arrays(grays, colors, np.loadtxt(kfile), outdir=str(tmp_path),
+                        matching_method="l2-mxu", quiet=True, ransac_options=OPTS,
+                        plots=True, device="cpu")
+    for name in ("step1-keypoints.png", "step2-matches.png"):
+        assert (tmp_path / name).stat().st_size > 1000
