@@ -13,8 +13,9 @@ Phases, one JSON line each:
                 X = Y = 28000, D = 144, on a case full of ties, and on
                 shapes that reach every branch of the wrapper and both
                 routes of the kernel (D not a multiple of 16, int8, tiny,
-                ragged Y, D above the tensor-core cap), all bit-exact,
-                with CUDA-event times;
+                ragged Y, D above the tensor-core cap, uint8 D = 128
+                padded as the pair step pads it), all bit-exact, with
+                CUDA-event times;
 * ``check_K2``, ``check_K3``  the SIFT orientation and descriptor
                 kernels against their plain versions on the real octave
                 gradients and keypoints of the rendered pair (atol 2e-5
@@ -42,9 +43,32 @@ Phases, one JSON line each:
                 the CPU (plain versions): match counts and consensus agree;
 * ``profile``   one more warm run under ``torch.profiler``: device time
                 by kernel and the device's busy share;
-* ``kernels``   one line for every kernel: launches in the warm run, ms,
-                plain ms, bound ms and what bounds it, and ``run_ms``,
-                its summed device time over the profiled warm run.
+* ``sfm``       ``run_sfm_arrays`` on 10 rendered 480x640 views on the
+                benchmark's arc (sequential pairs, batched pair step, PnP
+                init, Huber BA of 15 iterations), cold and warm: stage
+                seconds, keypoints, pairs, tracks, BA costs, ATE as a share
+                of the trajectory's span, the pair step's peak memory and
+                every kernel's launches in the warm run; then
+                ``check_sfm_kernels``, the kernels against their plain
+                versions at the shapes this path gives them (K1 on every
+                pair's padded tables from the warm run, bit-exact; K2
+                and K3 on every octave of one view), and
+                ``profile_sfm``, a profiled warm run (``run_ms_sfm``);
+* ``ba_check``  ``bundle_adjust_device`` on that problem twice on the card
+                (identical bytes) and once on the CPU (within 1e-6);
+* ``pnp_cap``   one PnP dispatch at the chunk cap (8 x 4096 rows): time
+                and peak memory;
+* ``sfm_scale`` 24 views with sequential and skip-2 pairs (45), 30 BA
+                iterations, a checkpoint, and a second run resuming from
+                it: seconds, peak memory, the PnP rounds and dispatches;
+* ``sfm_cpu_parity`` the 3-view 120x160 scene of the tests on the card and
+                on the CPU, with the loop and with the batched pair
+                backend (no pair retried): keypoints, matches and tracks
+                agree;
+* ``kernels``   one line for every kernel: launches in the warm two-view
+                run, ms, plain ms, bound ms and what bounds it, ``run_ms``,
+                its summed device time over the profiled warm run, and
+                ``launches_sfm`` / ``run_ms_sfm`` of the 10-view run.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 last the contract line ``{"ok": true, "device": {...}}``.  Any failure
@@ -87,6 +111,11 @@ SUBSET_ROWS = 4000
 SEED = 0
 # index of the small octave K3 is also checked on (0 is octave -1): 256x384
 SMALL_OCTAVE = 4
+# the multi-view scene: views of the benchmark's size on its arc
+SFM_H, SFM_W = 480, 640
+SFM_TEX = (100, 150)
+SFM_VIEWS = 10
+SCALE_VIEWS = 24
 
 
 def emit(phase, **kw):
@@ -205,33 +234,97 @@ def render(height, texture_at, K, R, t, h, w, device, depth=4.0, iters=8, ss=2):
     return im.reshape(h, ss, w, ss).mean(dim=(1, 3))
 
 
-def render_pair(h, w, device, tex_shape):
-    """Two views on a lateral arc (cameras as in the multi-view benchmark),
-    as the pipeline would read them from 8-bit files: ``(grays float32,
-    colors uint8 numpy, K, (R1, t1) of view 1 relative to view 0)``."""
+def arc_pose(i, n, target=(0.0, 0.0, 4.0), arc=(1.6, 0.25, 0.35)):
+    """View ``i`` of ``n`` on the multi-view benchmark's lateral arc
+    ``C = (1.6 s, 0.25 s, 0.35 |s|)``, ``s = i / (n - 1) - 0.5``, looking
+    at the surface centre: ``(R, t, C)``."""
+    import numpy as np
+
+    s = i / max(n - 1, 1) - 0.5
+    C = np.array([arc[0] * s, arc[1] * s, arc[2] * abs(s)])
+    R, t = look_at(C, np.asarray(target))
+    return R, t, C
+
+
+def render_views(n, h, w, device, tex_shape, seed=SEED):
+    """``n`` views of the scene on the arc, as the pipeline would read
+    them from 8-bit files: ``(grays float32, colors uint8 numpy, K,
+    [(R, t, C)])``."""
     import numpy as np
     import torch
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     gen = torch.Generator(device=device)
-    gen.manual_seed(SEED)
+    gen.manual_seed(seed)
     height, texture_at = make_scene(rng, gen, device, tex_shape)
     f = 1.1 * w
     K = np.array([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1.0]])
-    target = np.array([0.0, 0.0, 4.0])
     grays, colors, poses = [], [], []
-    for i in range(2):
-        s = i - 0.5
-        R, t = look_at(np.array([1.6 * s, 0.25 * s, 0.35 * abs(s)]), target)
-        im = render(height, texture_at, K, R, t, h, w, device)
-        u8 = (torch.clamp(im, 0, 1) * 255).to(torch.uint8)
+    for i in range(n):
+        R, t, C = arc_pose(i, n)
+        u8 = (torch.clamp(render(height, texture_at, K, R, t, h, w, device), 0, 1)
+              * 255).to(torch.uint8)
         g = u8.to(torch.float32)
         grays.append((g / g.max()).cpu().numpy())
         colors.append(u8.cpu().numpy())
-        poses.append((R, t))
-    (R0, t0), (R1, t1) = poses
+        poses.append((R, t, C))
+    return grays, colors, K, poses
+
+
+def render_pair(h, w, device, tex_shape):
+    """Two views on the arc: ``(grays, colors, K, (R1, t1) of view 1
+    relative to view 0)``."""
+    grays, colors, K, poses = render_views(2, h, w, device, tex_shape)
+    (R0, t0, _), (R1, t1, _) = poses
     R01 = R1 @ R0.T
     return grays, colors, K, (R01, t1 - R01 @ t0)
+
+
+def tiny_views(device, nviews=3, h=120, w=160):
+    """The 3-view 120x160 scene of ``tests/test_sfm_pipeline.py``'s
+    ``_tiny_dataset`` (same seed, texture, heightfield and arc), rendered
+    in memory: ``(grays, K, camera centres)``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0xDEADBEEF)
+    tex = rng.random((160, 220))
+    for _ in range(2):
+        tex = (tex + np.roll(tex, 1, 0) + np.roll(tex, -1, 0) + np.roll(tex, 1, 1)
+               + np.roll(tex, -1, 1)) / 5.0
+    tex = (tex - tex.min()) / max(float(np.ptp(tex)), 1e-9)
+    Ht, Wt = tex.shape
+    aspect = Wt / Ht
+    centers = rng.uniform(-0.6, 0.6, size=(5, 2)) * [aspect, 1.0]
+    amps = rng.uniform(0.3, 0.5, size=5) * rng.choice([-1, 1], 5)
+    widths = rng.uniform(0.35, 0.7, size=5)
+    tex_t = torch.as_tensor(tex, dtype=torch.float64, device=device)
+
+    def height(x, y):
+        hh = 0.1 * (x * x + y * y)
+        for (cx, cy), a, wd in zip(centers, amps, widths):
+            hh = hh + a * torch.exp(-((x - cx) ** 2 + (y - cy) ** 2) / (2 * wd * wd))
+        return hh
+
+    def texture_at(x, y):
+        u = torch.clamp((x / aspect * 0.5 + 0.5) * (Wt - 1), 0, Wt - 1.001)
+        v = torch.clamp((y * 0.5 + 0.5) * (Ht - 1), 0, Ht - 1.001)
+        u0, v0 = u.long(), v.long()
+        fu, fv = u - u0, v - v0
+        return (tex_t[v0, u0] * (1 - fu) * (1 - fv) + tex_t[v0, u0 + 1] * fu * (1 - fv)
+                + tex_t[v0 + 1, u0] * (1 - fu) * fv + tex_t[v0 + 1, u0 + 1] * fu * fv)
+
+    f = 1.1 * w
+    K = np.array([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1.0]])
+    grays, centres = [], []
+    for i in range(nviews):
+        R, t, C = arc_pose(i, nviews, arc=(1.4, 0.2, 0.3))
+        u8 = (torch.clamp(render(height, texture_at, K, R, t, h, w, device), 0, 1)
+              * 255).to(torch.uint8)
+        g = u8.to(torch.float32)
+        grays.append((g / g.max()).cpu().numpy())
+        centres.append(C)
+    return grays, K, np.asarray(centres)
 
 
 # --- bounds ---------------------------------------------------------
@@ -310,7 +403,14 @@ def k1_cases(torch, gen):
     base = i8(37, 160)
     base_u = u8(29, 132)
     pick = lambda b, n: b[torch.randint(0, b.shape[0], (n,), generator=gen, device="cuda")]
+    # the pair step's tables: database padded by replicating row 0,
+    # queries (some equal to row 0) padded with zeros, both to 4352 rows
+    db = u8(4100, 128)
+    q = torch.cat([u8(3990, 128), db[:1].expand(10, 128)])
+    pad_db = torch.cat([db, db[:1].expand(252, 128)])
+    pad_q = torch.cat([q, q.new_zeros((352, 128))])
     return [
+        ("padded_uint8_D128", pad_db, pad_q),
         ("ties_int8_D160", pick(base, 4099), pick(base, 2051)),
         ("ties_uint8_D132", pick(base_u, 1000), pick(base_u, 517)),
         ("uint8_D132", u8(4099, 132), u8(2051, 132)),
@@ -384,6 +484,24 @@ def k2_args(torch, sift, mod, ang, sel):
     return (mod, ang, sel[0], sel[1], sel[2], lvl, None, sift._R_OR)
 
 
+def k2_compare(torch, so, args, name):
+    """Kernel against plain version on one set of rows: ``(err, plain
+    histograms)``."""
+    if args[2].shape[0] == 0:
+        raise AssertionError(f"K2 check set {name} has no rows")
+    ones = torch.ones_like(args[2], dtype=torch.bool)
+    hk = so.orient_hist_cuda(*args)
+    hk2 = so.orient_hist_cuda(*args[:6], ones, args[7])
+    hp = so.orient_hist_plain(*args[:6], ones, args[7])
+    torch.cuda.synchronize()
+    if not torch.equal(hk, hk2):
+        raise AssertionError(f"K2 sift_orient_hist is not deterministic on {name}")
+    err = rel_err(hk, hp)
+    if not err <= 2e-5:
+        raise AssertionError(f"K2 sift_orient_hist disagrees with its plain version on {name}: {err}")
+    return err, hp
+
+
 def check_k2(torch, so, args, small_args):
     """``args``: the rows of octave -1 (timed); ``small_args``: those of
     a small octave.  Returns the result and octave -1's plain
@@ -392,20 +510,7 @@ def check_k2(torch, so, args, small_args):
             "clipped": k2_clipped_rows(torch, so, args)}
     errs, plain = {}, {}
     for name, a in sets.items():
-        if a[2].shape[0] == 0:
-            raise AssertionError(f"K2 check set {name} has no rows")
-        ones = torch.ones_like(a[2], dtype=torch.bool)
-        hk = so.orient_hist_cuda(*a)
-        hk2 = so.orient_hist_cuda(*a[:6], ones, a[7])
-        hp = so.orient_hist_plain(*a[:6], ones, a[7])
-        torch.cuda.synchronize()
-        if not torch.equal(hk, hk2):
-            raise AssertionError(f"K2 sift_orient_hist is not deterministic on {name}")
-        errs[name] = rel_err(hk, hp)
-        plain[name] = hp
-        if not errs[name] <= 2e-5:
-            raise AssertionError(
-                f"K2 sift_orient_hist disagrees with its plain version on {name}: {errs[name]}")
+        errs[name], plain[name] = k2_compare(torch, so, a, name)
     mod, ang, kx, ky, ksig, lvl, _, R = args
     ones = torch.ones_like(kx, dtype=torch.bool)
     ms = cuda_ms(lambda: so.orient_hist_cuda(*args), 20)
@@ -617,17 +722,21 @@ def check_two_view(np, res, R_gt, t_gt):
     return rot_err, t_err
 
 
-def profile_two_view(torch, run_once, out_dir, warm_s):
-    """One more warm two-view run under ``torch.profiler``: device time by
-    kernel (top 15, device-side events only), their sum as the device's
-    busy time, its share of the unprofiled warm run's wall time
-    ``warm_s`` (the profiler slows the host side several fold), and a
-    Chrome trace in ``out_dir`` when that is given.  Returns every
-    wrapper's summed device time in ms (``DEVICE_FUNCTIONS``)."""
+def profile_run(torch, run_once, out_dir, warm_s, phase="profile", trace="two_view_trace.json",
+                host_ops=True):
+    """One more warm run under ``torch.profiler``: device time by kernel
+    (top 15, device-side events only), their sum as the device's busy
+    time, its share of the unprofiled warm run's wall time ``warm_s``
+    (the profiler slows the host side several fold), and a Chrome trace
+    ``trace`` in ``out_dir`` when that is given.  ``host_ops=False``
+    records device activity only (a run of ~10^5 launches otherwise
+    spends minutes in the profiler's host-side bookkeeping).  Returns
+    every wrapper's summed device time in ms (``DEVICE_FUNCTIONS``)."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CPU] if host_ops else []
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         run_once()
         torch.cuda.synchronize()
 
@@ -642,18 +751,362 @@ def profile_two_view(torch, run_once, out_dir, warm_s):
     busy_ms = sum(r[1] for r in rows)
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(out_dir, "two_view_trace.json"))
+        prof.export_chrome_trace(os.path.join(out_dir, trace))
     run_ms = {
         name: sum(ms for key, ms, _ in rows if any(f in key for f in fns))
         for name, fns in DEVICE_FUNCTIONS.items()
     }
-    emit("profile", warm_wall_ms=warm_s * 1e3, device_busy_ms=busy_ms,
+    emit(phase, warm_wall_ms=warm_s * 1e3, device_busy_ms=busy_ms,
          busy_share=busy_ms / (warm_s * 1e3), n_kernels=sum(r[2] for r in rows),
          run_ms=run_ms,
          top=[{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:15]])
     if not all(v > 0 for v in run_ms.values()):
         raise AssertionError(f"the profiler saw no device time for a kernel: {run_ms}")
     return run_ms
+
+
+# --- multi-view SfM -------------------------------------------------
+
+
+def sfm_run(torch, grays, K, device, ransac=None, **kw):
+    """The port's ``run_sfm_arrays`` with the benchmark's RANSAC
+    threshold (rendered keypoints are ~pixel-accurate: 1 px at f = 1.1 W
+    is ~1.4e-3 in calibrated coordinates), any other RANSAC options in
+    ``ransac``, and a seeded generator."""
+    from spectavi_tpu_torch.pipeline.sfm import run_sfm_arrays
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    opts = dict({"reprojection_error_allowed": 2e-3}, **(ransac or {}))
+    return run_sfm_arrays(grays, K, quiet=True, generator=gen, device=device,
+                          ransac_options=opts, **kw)
+
+
+def ate_share(np, cams, gt_C):
+    """Camera ATE-RMSE after similarity alignment, as a share of the
+    ground-truth trajectory's span."""
+    from spectavi_tpu_torch.sfm import ate_rmse, camera_centers
+
+    return ate_rmse(camera_centers(cams), gt_C) / np.ptp(gt_C, axis=0).max()
+
+
+def sfm_summary(res, share):
+    m = res["metrics"]
+    return {
+        "seconds": {k[: -len("_seconds")]: m[k] for k in
+                    ("sift_seconds", "pairs_seconds", "graph_seconds", "ba_seconds")},
+        "keypoints": m["keypoints_per_view"],
+        "pairs": len(m["pairs"]),
+        "matches": [p.get("matches", 0) for p in m["pairs"]],
+        "inlier_percent": [round(p.get("inlier_percent", 0.0), 4) for p in m["pairs"]],
+        "tracks": m["n_tracks"], "observations": m["n_observations"],
+        "ba_cost_initial": m["ba_cost_initial"], "ba_cost_final": m["ba_cost_final"],
+        "init_used": m["init_used"], "pair_backend": m["pair_backend"], "ate_share": share,
+    }
+
+
+def check_sfm(np, res, share, n_pairs, name):
+    """The gates of a multi-view run on the rendered scene."""
+    m = res["metrics"]
+    pairs = m["pairs"]
+    if m["pair_backend"] != "batched":
+        raise AssertionError(f"{name}: pair backend {m['pair_backend']}, not batched")
+    if len(pairs) != n_pairs or not all(
+            p.get("matches", 0) >= 10 and p.get("success") for p in pairs):
+        raise AssertionError(f"{name}: a pair failed: {pairs}")
+    if m["init_used"] != "pnp" or any(p.get("batched_retry") for p in pairs):
+        raise AssertionError(f"{name}: a fallback fired: init {m['init_used']}, {pairs}")
+    if not m["ba_cost_final"] <= m["ba_cost_initial"]:
+        raise AssertionError(f"{name}: BA raised the cost {m['ba_cost_initial']} -> "
+                             f"{m['ba_cost_final']}")
+    if not np.isfinite(res["points"]).all():
+        raise AssertionError(f"{name}: points are not finite")
+    if not share < 0.02:
+        raise AssertionError(f"{name}: ATE {share:.4f} of the span, limit 0.02")
+
+
+def track_peak(torch, mod, name, peaks):
+    """Wrap ``mod.name`` to record the device's peak allocation (MiB)
+    over each call in ``peaks``; returns a function that undoes it."""
+    fn = getattr(mod, name)
+
+    def wrapped(*a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        peaks.append({"base_mib": base / 2**20,
+                      "peak_mib": torch.cuda.max_memory_allocated() / 2**20})
+        return out
+
+    setattr(mod, name, wrapped)
+    return lambda: setattr(mod, name, fn)
+
+
+def capture_step_tables(two_view, tables):
+    """Wrap ``two_view.make_two_view_step`` so that each step it builds
+    appends its padded descriptor tables ``(desc0, desc1)`` to
+    ``tables``; returns a function that undoes it."""
+    make = two_view.make_two_view_step
+
+    def wrapped_make(*a, **k):
+        step = make(*a, **k)
+
+        def wrapped_step(desc0, desc1, *r, **kk):
+            tables.append((desc0, desc1))
+            return step(desc0, desc1, *r, **kk)
+
+        return wrapped_step
+
+    two_view.make_two_view_step = wrapped_make
+    return lambda: setattr(two_view, "make_two_view_step", make)
+
+
+def check_sfm_kernels(torch, sift, l2nn, so, sd, tables, gray):
+    """Every kernel against its plain version at the shapes of the
+    10-view path: K1 on each pair's padded tables as the warm run's pair
+    step handed them to it (bit-exact), K2 and K3 on every octave of one
+    view with keypoints (as ``check_K2`` / ``check_K3``)."""
+    if not tables:
+        raise AssertionError("the 10-view run built no pair step")
+    d0, d1 = tables[-1]
+    for b in range(d0.shape[0]):
+        ik, dk = l2nn.l2_topk2_cuda(d0[b], d1[b])
+        ip, dp = l2nn.l2_topk_mxu(d0[b], d1[b])
+        torch.cuda.synchronize()
+        if not (torch.equal(ik, ip) and torch.equal(dk, dp)):
+            raise AssertionError(f"K1 l2nn_top2 disagrees with its plain version on pair {b}")
+    n_oct = sift.num_octaves(*gray.shape, -1)
+    octs = octave_inputs(torch, sift, gray, tuple(range(n_oct)))
+    per_octave = []
+    for oi, (mod, ang, sel) in sorted(octs.items()):
+        row = {"octave": oi - 1, "H": mod.shape[1], "W": mod.shape[2], "rows": int(sel.shape[1])}
+        if sel.shape[1]:
+            a2 = k2_args(torch, sift, mod, ang, sel)
+            row["k2_err"], hp = k2_compare(torch, so, a2, f"view octave {oi - 1}")
+            th, av = so.orientation_peaks(hp, torch.ones_like(a2[2], dtype=torch.bool))
+            a3 = k3_args(torch, sift, mod, ang, sel, th, av)
+            row["k3_rows"] = int(a3[2].shape[0])
+            if a3[2].shape[0]:
+                row["k3_err"], row["k3_lsb"] = k3_compare(torch, sd, a3, f"view octave {oi - 1}")
+        per_octave.append(row)
+    if sum(r["rows"] for r in per_octave) == 0:
+        raise AssertionError("no keypoint on the view's octaves")
+    emit("check_sfm_kernels", k1={"pairs": int(d0.shape[0]), "X": int(d0.shape[1]),
+                                  "Y": int(d1.shape[1]), "D": int(d0.shape[2]),
+                                  "dtype": str(d0.dtype).replace("torch.", ""), "exact": True},
+         view_octaves=per_octave)
+
+
+def phase_sfm(torch, np, wrappers, profile_dir):
+    """The 10-view run: cold, warm with launch counts, the kernels
+    against their plain versions at this path's shapes, profiled."""
+    from spectavi_tpu_torch.features import sift
+    from spectavi_tpu_torch.ops import l2nn
+    from spectavi_tpu_torch.ops import sift_desc as sd
+    from spectavi_tpu_torch.ops import sift_orient as so
+    from spectavi_tpu_torch.parallel import two_view
+    from spectavi_tpu_torch.pipeline import sfm as sfm_mod
+
+    t0 = time.perf_counter()
+    grays, _, K, poses = render_views(SFM_VIEWS, SFM_H, SFM_W, "cuda", SFM_TEX)
+    gt_C = np.array([C for _, _, C in poses])
+    render_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold = sfm_run(torch, grays, K, "cuda")
+    cold_s = time.perf_counter() - t0
+    pair_peaks, tables = [], []
+    undo = track_peak(torch, sfm_mod, "_match_pairs_batched", pair_peaks)
+    undo_tables = capture_step_tables(two_view, tables)
+    for mod_ in wrappers.values():
+        mod_.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = sfm_run(torch, grays, K, "cuda")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches = {name: mod_.launches for name, mod_ in wrappers.items()}
+    undo()
+    undo_tables()
+    share = ate_share(np, warm["cams"], gt_C)
+    emit("sfm", views=SFM_VIEWS, shape=[SFM_H, SFM_W], render_seconds=render_s,
+         cold_seconds=cold_s, warm_seconds=warm_s,
+         cold_stage_seconds=sfm_summary(cold, share)["seconds"], launches=launches,
+         pair_step_memory=pair_peaks, **sfm_summary(warm, share))
+    check_sfm(np, warm, share, SFM_VIEWS - 1, "sfm")
+    if not (launches["l2nn_top2"] == SFM_VIEWS - 1 and launches["sift_orient_hist"] > 0
+            and launches["sift_desc"] > 0):
+        raise AssertionError(f"the 10-view run did not launch the kernels as expected: {launches}")
+    check_sfm_kernels(torch, sift, l2nn, so, sd, tables, grays[0])
+    del tables
+    run_ms = profile_run(torch, lambda: sfm_run(torch, grays, K, "cuda"), profile_dir, warm_s,
+                         "profile_sfm", "sfm_trace.json", host_ops=False)
+    return warm, K, launches, run_ms
+
+
+def phase_ba_check(torch, np, res, K):
+    """``bundle_adjust_device`` on the warm 10-view problem (its solution
+    perturbed, seeded): twice on the card, once on the CPU, float64."""
+    from spectavi_tpu_torch.sfm import bundle_adjust_device, tracks_to_observations
+
+    iK = np.linalg.inv(K)
+    pts_cal = []
+    for m in res["keypoints"]:
+        h = np.hstack([m[:, :2], np.ones((m.shape[0], 1))]) @ iK.T
+        pts_cal.append(h[:, :2] / h[:, 2:3])
+    ci, pi, uv = tracks_to_observations(res["tracks"], pts_cal)
+    rng = np.random.default_rng(SEED)
+    cams0 = res["cams"].copy()
+    cams0[1:] += 1e-3 * rng.standard_normal(cams0[1:].shape)
+    pts0 = res["points"] + 1e-3 * rng.standard_normal(res["points"].shape)
+    runs, secs = [], []
+    for dev in ("cuda", "cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(bundle_adjust_device(cams0, pts0, ci, pi, uv, max_iters=15, loss="huber",
+                                         device=dev))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    (ca, pa, ha), (cb, pb, hb), (cc, pc, hc) = runs
+    identical = (ca.tobytes() == cb.tobytes() and pa.tobytes() == pb.tobytes()
+                 and np.array(ha).tobytes() == np.array(hb).tobytes())
+    rel = max(float(np.abs(ca - cc).max() / np.abs(cc).max()),
+              float(np.abs(pa - pc).max() / np.abs(pc).max()))
+    emit("ba_check", cameras=int(cams0.shape[0]), points=int(pts0.shape[0]),
+         observations=int(len(ci)), iters=15, seconds_cuda=secs[:2], seconds_cpu=secs[2],
+         cost_cuda=ha, cost_cpu=hc, identical_on_card=identical, rel_err_card_vs_cpu=rel,
+         agreement="within_1e-6" if rel <= 1e-6 else "outside_1e-6")
+    if not identical:
+        raise AssertionError("two card runs of bundle_adjust_device differ")
+    if not rel <= 1e-6:
+        raise AssertionError(f"card and CPU bundle adjustment differ by {rel} (relative)")
+
+
+def phase_pnp_cap(torch, np):
+    """One ``pnp_ransac_batch`` dispatch at the chunk cap (8 problems of
+    4096 rows: Bpad x Npad = 32768), 25% outliers: time and peak device
+    memory."""
+    from spectavi_tpu_torch.sfm import pnp_ransac_batch, rodrigues
+
+    rng = np.random.default_rng(SEED)
+    problems = []
+    for _ in range(8):
+        rv, tv = rng.normal(0, 0.3, 3), rng.normal(0, 0.3, 3)
+        R = rodrigues(torch.as_tensor(rv)).numpy()
+        X = rng.standard_normal((4096, 3)) * [1, 1, 0.5] + [0, 0, 6.0]
+        Xc = X @ R.T + tv
+        uv = Xc[:, :2] / Xc[:, 2:] + rng.normal(0, 2e-4, (4096, 2))
+        uv[:1024] += rng.uniform(0.05, 0.2, (1024, 2)) * rng.choice([-1, 1], (1024, 2))
+        problems.append((X, uv))
+    pnp_ransac_batch(problems[:1], device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = pnp_ransac_batch(problems, device="cuda")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    emit("pnp_cap", problems=8, rows=4096, trials=512, ms=ms, base_mib=base / 2**20,
+         peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+         n_inliers=[r["n_inliers"] for r in res])
+    if not all(r["success"] and r["n_inliers"] >= 2900 for r in res):
+        raise AssertionError("PnP at the chunk cap missed its inliers")
+
+
+def phase_sfm_scale(torch, np):
+    """24 views with sequential and skip-2 pairs (45 pairs), 30 BA
+    iterations, written to a checkpoint; then a run that resumes from
+    it."""
+    from spectavi_tpu_torch.sfm import resection
+
+    grays, _, K, poses = render_views(SCALE_VIEWS, SFM_H, SFM_W, "cuda", SFM_TEX)
+    gt_C = np.array([C for _, _, C in poses])
+    pairs = ([(i, i + 1) for i in range(SCALE_VIEWS - 1)]
+             + [(i, i + 2) for i in range(SCALE_VIEWS - 2)])
+    ckpt = os.path.join(ROOT, "build", "sfm_scale_state.npz")
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    # PnP registration rounds (calls from incremental_poses) and the
+    # dispatches they ran (chunks of at most 32768 // Npad problems)
+    seen = {"rounds": 0, "depth": 0, "dispatches": []}
+    batch_fn, full_fn = resection.pnp_ransac_batch, resection._pnp_full
+
+    def batch(*a, **k):
+        seen["rounds"] += seen["depth"] == 0
+        seen["depth"] += 1
+        try:
+            return batch_fn(*a, **k)
+        finally:
+            seen["depth"] -= 1
+
+    def full(X, *a, **k):
+        seen["dispatches"].append([int(X.shape[0]), int(X.shape[1])])
+        return full_fn(X, *a, **k)
+
+    resection.pnp_ransac_batch, resection._pnp_full = batch, full
+    out = {}
+    try:
+        for name in ("first", "resume"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = sfm_run(torch, grays, K, "cuda", pairs=pairs, ba_iters=30, checkpoint=ckpt)
+            torch.cuda.synchronize()
+            share = ate_share(np, res["cams"], gt_C)
+            out[name] = (res, dict(sfm_summary(res, share), wall_seconds=time.perf_counter() - t0,
+                                   peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                                   pnp_rounds=seen["rounds"],
+                                   pnp_dispatches=list(seen["dispatches"])))
+            seen["rounds"] = 0
+            seen["dispatches"].clear()
+    finally:
+        resection.pnp_ransac_batch, resection._pnp_full = batch_fn, full_fn
+    (r1, s1), (r2, s2) = out["first"], out["resume"]
+    resumed = np.array_equal(r1["tracks"], r2["tracks"])
+    emit("sfm_scale", views=SCALE_VIEWS, shape=[SFM_H, SFM_W], ba_iters=30,
+         resumed=resumed, first=s1, resume=s2)
+    for r, sm, name in ((r1, s1, "sfm_scale"), (r2, s2, "sfm_scale resume")):
+        check_sfm(np, r, sm["ate_share"], len(pairs), name)
+    if not resumed:
+        raise AssertionError("the second 24-view run did not resume from the checkpoint")
+
+
+def phase_sfm_cpu_parity(torch, np):
+    """``tests/test_sfm_pipeline.py``'s 3-view 120x160 scene on the card
+    and on the CPU (plain kernels), with the loop pair backend (what
+    "auto" takes for 2 pairs) and with the batched one.  At 0.5 px noise
+    on 160-pixel views few seven-point roots pass the default
+    singular-value gate of 1e-3, so the batched runs take it at 1e-2,
+    where the batch resolves every pair itself; no pair may be
+    retried."""
+    grays, K, gt_C = tiny_views("cuda")
+    summ, bad = {}, []
+    for backend, opts in (("loop", None), ("batched", {"singular_value_ratio_allowed": 1e-2})):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            res = sfm_run(torch, grays, K, dev, ransac=opts, pair_backend=backend)
+            got[dev] = (res["metrics"], ate_share(np, res["cams"], gt_C))
+        (mg, ag), (mc, ac) = got["cuda"], got["cpu"]
+        summ[backend] = {dev: {"keypoints": m["keypoints_per_view"],
+                               "matches": [p.get("matches", 0) for p in m["pairs"]],
+                               "tracks": m["n_tracks"], "ate_share": a,
+                               "pair_backend": m["pair_backend"],
+                               "retried": [bool(p.get("batched_retry")) for p in m["pairs"]]}
+                         for dev, (m, a) in got.items()}
+        kp_ok = all(abs(a - b) <= 0.02 * b for a, b in
+                    zip(mg["keypoints_per_view"], mc["keypoints_per_view"]))
+        mm = [(a.get("matches", 0), b.get("matches", 0)) for a, b in zip(mg["pairs"], mc["pairs"])]
+        m_ok = len(mg["pairs"]) == len(mc["pairs"]) and all(abs(a - b) <= 0.03 * b for a, b in mm)
+        t_ok = abs(mg["n_tracks"] - mc["n_tracks"]) <= 0.05 * mc["n_tracks"]
+        path_ok = all(m["pair_backend"] == backend and not any(
+            p.get("batched_retry") for p in m["pairs"]) for m in (mg, mc))
+        if not (kp_ok and m_ok and t_ok and path_ok and ag < 0.10 and ac < 0.10):
+            bad.append(backend)
+    emit("sfm_cpu_parity", shape=[120, 160], **summ)
+    if bad:
+        raise AssertionError(f"the card and the CPU disagree on the 3-view scene ({bad}): {summ}")
 
 
 def rotation_angle_deg(Ra, Rb):
@@ -745,9 +1198,8 @@ def main(argv):
     check_two_view(np, warm, R_gt, t_gt)
     if not all(v > 0 for v in launches.values()):
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
-    run_ms = profile_two_view(
-        torch, lambda: run("cuda", grays, colors, K),
-        argv[argv.index("--profile") + 1] if "--profile" in argv else None, warm_s)
+    profile_dir = argv[argv.index("--profile") + 1] if "--profile" in argv else None
+    run_ms = profile_run(torch, lambda: run("cuda", grays, colors, K), profile_dir, warm_s)
 
     # the other matchers of step 2: SIFT, then the matcher, both on the card
     mg, mc, mk, (mR, mt_) = render_pair(MID_H, MID_W, "cuda", MID_TEX)
@@ -794,6 +1246,19 @@ def main(argv):
     if not (kp_ok and nm_ok and cons_ok):
         raise AssertionError("the card and the CPU disagree on the small pair")
 
+    # the multi-view phases, each with its own clock
+    phase_s = {"before_sfm": time.perf_counter() - t_start}
+    t0 = time.perf_counter()
+    warm_sfm, sfm_K, launches_sfm, run_ms_sfm = phase_sfm(torch, np, wrappers, profile_dir)
+    phase_s["sfm"] = time.perf_counter() - t0
+    for name, fn, args in (("ba_check", phase_ba_check, (warm_sfm, sfm_K)),
+                           ("pnp_cap", phase_pnp_cap, ()), ("sfm_scale", phase_sfm_scale, ()),
+                           ("sfm_cpu_parity", phase_sfm_cpu_parity, ())):
+        t0 = time.perf_counter()
+        fn(torch, np, *args)
+        phase_s[name] = time.perf_counter() - t0
+    del warm_sfm
+
     kernels = []
     for name, res, src, rep in (
         ("l2nn_top2", res_k1, "spectavi_tpu_torch/csrc/l2nn_top2.cu",
@@ -808,9 +1273,10 @@ def main(argv):
             "launches": launches[name], "max_abs_err": res["max_abs_err"],
             "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
-            "run_ms": run_ms[name],
+            "run_ms": run_ms[name], "launches_sfm": launches_sfm[name],
+            "run_ms_sfm": run_ms_sfm[name],
         })
-    emit("done", seconds=time.perf_counter() - t_start)
+    emit("done", seconds=time.perf_counter() - t_start, phase_seconds=phase_s)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 """spectavi_tpu_torch — the PyTorch/CUDA port of ``spectavi_tpu``.
 
 Same layout and function names as the JAX package (``mvg``,
-``features``, ``match``, ``ops``, ``pipeline``); plain tensor code is
+``features``, ``match``, ``ops``, ``sfm``, ``parallel``, ``pipeline``);
+plain tensor code is
 PyTorch, and every Pallas kernel of the JAX package is a hand-written
 CUDA kernel for Hopper (``sm_90a``) under ``csrc/``, built with
 ``nvcc`` at first use (:mod:`spectavi_tpu_torch.ops._build`).

@@ -67,47 +67,56 @@ def _diag110(like):
 def _sampson_counts(F, valid, x0, x1, point_mask, reproj_allowed, svr_allowed, chunk=1024):
     """Sampson inlier counts for ranking hypotheses.
 
-    ``F (T, 3, 3, 3)``, ``valid (T, 3)`` -> ``(counts (T, 3), gate
-    (T, 3))``: counts of every valid root (-1 where the 7-point solve
-    failed) and the reference's singular-value-ratio + validity gate.
-    Trials are scored ``chunk`` at a time to bound memory; each trial's
-    count is independent of the chunking."""
+    ``F (..., T, 3, 3, 3)``, ``valid (..., T, 3)`` over correspondences
+    ``x0, x1 (..., N, 2)`` -> ``(counts (..., T, 3), gate (..., T, 3))``:
+    counts of every valid root (-1 where the 7-point solve failed) and
+    the reference's singular-value-ratio + validity gate.  Trials are
+    scored at most ``chunk`` at a time, fewer when the leading batch is
+    wide, to bound memory; each trial's count is independent of the
+    chunking."""
     thr2 = (0.5 * reproj_allowed) ** 2
-    x0h = torch.cat([x0, torch.ones_like(x0[:, :1])], dim=-1)
-    x1h = torch.cat([x1, torch.ones_like(x1[:, :1])], dim=-1)
+    x0h = torch.cat([x0, torch.ones_like(x0[..., :1])], dim=-1)
+    x1h = torch.cat([x1, torch.ones_like(x1[..., :1])], dim=-1)
     D = _diag110(F)
+    pm = point_mask[..., None, None, :]
+    lead = int(np.prod(F.shape[:-4]))
+    chunk = max(1, min(chunk, (1 << 27) // max(1, lead * 9 * x0.shape[-2])))
     counts, gates = [], []
-    for s in range(0, F.shape[0], chunk):
-        Ft, validt = F[s : s + chunk], valid[s : s + chunk]
+    for s in range(0, F.shape[-4], chunk):
+        Ft, validt = F[..., s : s + chunk, :, :, :], valid[..., s : s + chunk, :]
         U, S, Vt = svd3x3(Ft)
         ratio = torch.abs(S[..., 0] - S[..., 1]) / (torch.abs(S[..., 0] + S[..., 1]) / 2.0)
         gate = (ratio <= svr_allowed) & validt
         E = U @ D @ Vt
-        Ex0 = torch.einsum("trij,nj->trni", E, x0h)
-        Etx1 = torch.einsum("trji,nj->trni", E, x1h)
-        xEx = torch.einsum("ni,trni->trn", x1h, Ex0)
+        Ex0 = torch.einsum("...trij,...nj->...trni", E, x0h)
+        Etx1 = torch.einsum("...trji,...nj->...trni", E, x1h)
+        xEx = torch.einsum("...ni,...trni->...trn", x1h, Ex0)
         denom = Ex0[..., 0] ** 2 + Ex0[..., 1] ** 2 + Etx1[..., 0] ** 2 + Etx1[..., 1] ** 2
         sampson2 = (xEx * xEx) / torch.clamp(denom, min=1e-30)
-        inlier = (sampson2 <= thr2) & point_mask
+        inlier = (sampson2 <= thr2) & pm
         c = inlier.sum(-1).to(torch.int32)
         counts.append(torch.where(validt, c, torch.full_like(c, -1)))
         gates.append(gate)
-    return torch.cat(counts), torch.cat(gates)
+    return torch.cat(counts, dim=-2), torch.cat(gates, dim=-2)
 
 
 def _rescore_best(F, x0, x1, point_mask, reproj_allowed):
-    """Re-score a batch of ``F (B, 3, 3)``: best of each one's 4
-    cameras under the exact criterion.  Returns ``(cams (B, 3, 4),
-    counts (B,), masks (B, N))``."""
+    """Re-score ``F (..., K, 3, 3)``: best of each one's 4 cameras under
+    the exact criterion, over ``x0, x1 (..., N, 2)``.  Returns ``(cams
+    (..., K, 3, 4), counts (..., K), masks (..., K, N))``."""
     P0 = identity_camera(x0.dtype, x0.device)
     U, S, Vt = svd3x3(F)
-    P1s = cameras_from_svd(U, Vt)  # (B, 4, 3, 4)
-    _, reproj, infront = triangulate_fast_full(P0, P1s[:, :, None], x0, x1)
-    inlier = (reproj <= reproj_allowed) & infront & point_mask  # (B, 4, N)
+    P1s = cameras_from_svd(U, Vt)  # (..., K, 4, 3, 4)
+    _, reproj, infront = triangulate_fast_full(
+        P0, P1s[..., None, :, :], x0[..., None, None, :, :], x1[..., None, None, :, :]
+    )
+    inlier = (reproj <= reproj_allowed) & infront & point_mask[..., None, None, :]  # (..., K, 4, N)
     counts = inlier.sum(-1).to(torch.int32)
-    ic = torch.argmax(counts, dim=1)
-    b = torch.arange(F.shape[0], device=F.device)
-    return P1s[b, ic], counts[b, ic], inlier[b, ic]
+    ic = torch.argmax(counts, dim=-1)  # (..., K)
+    cams = torch.take_along_dim(P1s, ic[..., None, None, None], dim=-3)[..., 0, :, :]
+    cnt = torch.take_along_dim(counts, ic[..., None], dim=-1)[..., 0]
+    msk = torch.take_along_dim(inlier, ic[..., None, None], dim=-2)[..., 0, :]
+    return cams, cnt, msk
 
 
 def _cg_solve9(G, b, iters=16):
@@ -212,6 +221,52 @@ def ransac_fit_block(sample, x0, x1, point_mask, reproj_allowed, svr_allowed,
         wsel = torch.where(enough[:, None], loose2, wsel)
     bi = torch.argmax(best_cnt)
     return best_E[bi], best_cam[bi], best_cnt[bi], best_msk[bi]
+
+
+def _gather_rows(x, idx):
+    """``x (..., N, d)`` rows at ``idx (..., m)`` -> ``(..., m, d)``."""
+    return torch.take_along_dim(x, idx[..., None], dim=-2)
+
+
+def ransac_essential_core(sample, x0, x1, reproj_allowed, svr_allowed, point_mask=None):
+    """One batch of RANSAC trials; the batch winner.
+
+    ``sample (..., T, 7)`` row indices into the euclidean
+    correspondences ``x0, x1 (..., N, 2)``; ``point_mask (..., N)``
+    marks real rows.  Leading dimensions are independent problems (the
+    pair step's pairs).  The 7-point roots are ranked by their Sampson
+    counts under the reference gate, the top 8 (stable: ties to the
+    lower index, as ``lax.top_k``) are re-scored under the exact
+    criterion, and the best wins.  Returns a dict of ``essential (...,
+    3, 3)``, ``camera (..., 3, 4)``, ``count (...)`` (-1 when every
+    hypothesis failed the gate) and ``inlier_mask (..., N)``."""
+    N = x0.shape[-2]
+    if point_mask is None:
+        point_mask = torch.ones(x0.shape[:-1], dtype=torch.bool, device=x0.device)
+    lead, T = sample.shape[:-2], sample.shape[-2]
+    flat_s = sample.reshape(*lead, T * 7)
+    xs0 = _gather_rows(x0, flat_s).reshape(*lead, T, 7, 2)
+    xs1 = _gather_rows(x1, flat_s).reshape(*lead, T, 7, 2)
+    F, valid = seven_point(xs0, xs1, nullspace="mgs")
+    counts, gate = _sampson_counts(F, valid, x0, x1, point_mask, reproj_allowed, svr_allowed)
+    counts = torch.where(gate, counts, torch.full_like(counts, -1))
+    flat = counts.reshape(*lead, T * 3)
+    k_rank = min(8, T * 3)
+    topv, top_i = torch.sort(flat, dim=-1, descending=True, stable=True)
+    topv, top_i = topv[..., :k_rank], top_i[..., :k_rank]
+    Fk = torch.take_along_dim(F.reshape(*lead, T * 3, 3, 3), top_i[..., None, None], dim=-3)
+    cams, cnts, msks = _rescore_best(Fk, x0, x1, point_mask, reproj_allowed)
+    cnts = torch.where(topv >= 0, cnts, torch.full_like(cnts, -1))
+    bi = torch.argmax(cnts, dim=-1, keepdim=True)  # (..., 1)
+    best = torch.take_along_dim(cnts, bi, dim=-1)[..., 0]
+    best_ok = best >= 0
+    return {
+        "essential": torch.take_along_dim(Fk, bi[..., None, None], dim=-3)[..., 0, :, :],
+        "camera": torch.take_along_dim(cams, bi[..., None, None], dim=-3)[..., 0, :, :],
+        "count": torch.where(best_ok, best, torch.full_like(best, -1)),
+        "inlier_mask": torch.take_along_dim(msks, bi[..., None], dim=-2)[..., 0, :]
+        & best_ok[..., None],
+    }
 
 
 def ransac_fitter(x0, x1, options=None, generator=None, batch_trials=8192,

@@ -41,9 +41,9 @@ def main(argv=None):
     parser.add_argument("--reproj", default=None, type=float,
                         help="override RANSAC reprojection threshold (normalized coords)")
     parser.add_argument("--ba", action="store_true",
-                        help="two-view bundle-adjustment polish (not ported yet)")
+                        help="two-view bundle-adjustment polish of the camera and points")
     parser.add_argument("--distortion", action="store_true",
-                        help="radial lens model during --ba (not ported yet)")
+                        help="radial lens model during --ba")
     parser.add_argument("--plots", action="store_true",
                         help="also save keypoint/match visualizations (needs matplotlib)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])

@@ -15,8 +15,9 @@ On CUDA with ``l2-mxu``, steps 1+2 run as one device-resident front
 end (:func:`step12_fused_device`): descriptors stay on the card from
 SIFT through quantization to the matcher.  :func:`run_two_view` reads
 the image files and K; :func:`run_two_view_arrays` is the array-level
-core that takes decoded images.  ``ba=True`` raises
-``NotImplementedError`` (ROADMAP.md item A11).
+core that takes decoded images.  ``ba=True`` polishes step 4's camera
+and points by bundle adjustment (with ``distortion=True`` also a shared
+radial lens model).
 """
 
 from __future__ import annotations
@@ -149,12 +150,11 @@ def step4_triangulate(step3_out, image_paths=None, outdir=None, quiet=False, ba=
                       distortion=False, images=None, device="cuda"):
     """DLT triangulation of the inliers (float64 on ``device``); PLY
     output with vertex colors sampled from ``images`` (raw decodes) when
-    given."""
+    given.  ``ba``: with 10 or more inliers, refine P1 and the points by
+    bundle adjustment against the inlier observations (10 iterations,
+    camera 0 fixed), with a shared radial ``(k1, k2)`` model when
+    ``distortion`` (which alone changes nothing)."""
     dev = resolve_device(device)
-    if ba or distortion:
-        raise NotImplementedError(
-            "the two-view bundle-adjustment polish is not ported yet (ROADMAP.md item A11)"
-        )
     ransac, x0, x1, xd, yd = step3_out
     idx = ransac["inlier_idx"]
     P1 = ransac["camera"]
@@ -162,6 +162,28 @@ def step4_triangulate(step3_out, image_paths=None, outdir=None, quiet=False, ba=
     with Timer("step4-computation", quiet):
         RX = mvg.dlt_triangulate(P0, P1, x0[idx], x1[idx], device=dev)
     RX = RX / RX[..., -1:].reshape(-1, 1)
+    if ba and len(idx) >= 10:
+        from spectavi_tpu_torch.sfm import bundle_adjust, rodrigues, rotation_to_rvec
+
+        cams0 = np.zeros((2, 6))
+        cams0[1, :3] = rotation_to_rvec(P1[:, :3])
+        cams0[1, 3:] = P1[:, 3]
+        M = len(idx)
+        ci = np.concatenate([np.zeros(M, np.int32), np.ones(M, np.int32)])
+        pi = np.concatenate([np.arange(M, dtype=np.int32)] * 2)
+        uv = np.concatenate([x0[idx, :2] / x0[idx, 2:], x1[idx, :2] / x1[idx, 2:]])
+        with Timer("step4-ba", quiet):
+            out = bundle_adjust(
+                cams0, RX[:, :3], ci, pi, uv, fixed_cameras=(0,), max_iters=10,
+                estimate_distortion=distortion, device=dev,
+            )
+        cams_ba, pts_ba, hist = out[:3]
+        if not quiet:
+            k_msg = f"  (k1,k2)=({out[3][0]:.4f},{out[3][1]:.4f})" if distortion else ""
+            print(f"  two-view BA: cost {hist[0]:.3e} -> {hist[-1]:.3e}{k_msg}")
+        R1 = rodrigues(torch.as_tensor(cams_ba[1, :3])).numpy()
+        ransac = dict(ransac, camera=np.hstack([R1, cams_ba[1, 3:, None]]))
+        RX = np.hstack([pts_ba, np.ones((M, 1))])
     rgb = None
     if images is None and image_paths is not None:
         images = (imread(image_paths[0], dtype="uint8"), imread(image_paths[1], dtype="uint8"))
@@ -238,10 +260,6 @@ def run_two_view_arrays(grays, colors, K, image_names=("im0.png", "im1.png"), ou
     ``outdir`` is set, are named after ``image_names``.  Returns the
     same dict as :func:`run_two_view`."""
     dev = resolve_device(device)
-    if ba or distortion:
-        raise NotImplementedError(
-            "the two-view bundle-adjustment polish is not ported yet (ROADMAP.md item A11)"
-        )
     if outdir is not None:
         os.makedirs(outdir, exist_ok=True)
     K = np.asarray(K, dtype=np.float64)
@@ -308,7 +326,8 @@ def run_two_view_arrays(grays, colors, K, image_names=("im0.png", "im1.png"), ou
         print(" Singular Values ratio score: ", np.abs(s[0] - s[1]) / np.abs(s[0] + s[1]))
     metrics["decode_seconds"] = float(decode_seconds)
     t0 = time.perf_counter()
-    RX, ransac = step4_triangulate(step3_out, None, outdir, quiet, images=colors, device=dev)
+    RX, ransac = step4_triangulate(step3_out, None, outdir, quiet, ba=ba, distortion=distortion,
+                                   images=colors, device=dev)
     metrics["step4_seconds"] = time.perf_counter() - t0
     metrics["n_points"] = int(RX.shape[0])
     t0 = time.perf_counter()

@@ -170,15 +170,71 @@ def test_rectify_pair_tensor_api_vs_jax(pair):
 
 
 def test_unported_options_raise(pair):
-    # every matcher of the JAX package is ported; the bundle-adjustment
-    # polish is what is left
+    # every matcher and option of the JAX package is ported (the BA
+    # polish is held to JAX below); an unknown matcher raises
     _, paths, kfile = pair
-    for kw in ({"ba": True}, {"distortion": True}):
-        with pytest.raises(NotImplementedError):
-            run_two_view(paths, kfile, outdir=None, device="cpu", quiet=True, **kw)
     with pytest.raises(ValueError):
         run_two_view(paths, kfile, outdir=None, device="cpu", quiet=True,
                      matching_method="hnsw")
+
+
+def _ba_step3(rng, n=60, k=(-0.08, 0.02)):
+    """Step 3's output for a wide-angle pair: inlier correspondences seen
+    through the radial model ``k`` with noise, and a RANSAC camera off
+    the true pose."""
+    X = rng.standard_normal((n, 3)) * [1.5, 1.0, 0.5] + [0.0, 0.0, 4.0]
+    a = 0.15
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+    t = np.array([-0.8, 0.05, 0.1])
+
+    def obs(Xc):
+        p = Xc[:, :2] / Xc[:, 2:]
+        r2 = np.sum(p * p, axis=1, keepdims=True)
+        p = p * (1.0 + k[0] * r2 + k[1] * r2 * r2) + 1e-4 * rng.standard_normal(p.shape)
+        return np.hstack([p, np.ones((n, 1))])
+
+    x0, x1 = obs(X), obs(X @ R.T + t)
+    cam = np.hstack([R, (t + 0.01 * rng.standard_normal(3))[:, None]])
+    ransac = {"inlier_idx": np.arange(n), "camera": cam, "success": True,
+              "inlier_percent": 1.0, "essential": np.eye(3)}
+    return ransac, x0, x1, x0[:, :2], x1[:, :2]
+
+
+@pytest.mark.parametrize("distortion", [False, True])
+def test_two_view_ba_polish_vs_jax(rng, distortion):
+    """``ba=True`` (and with ``distortion``) refines P1 and the points by
+    the bundle adjustment the JAX package runs: camera, points and the
+    radial block within 1e-8; ``distortion`` alone changes nothing."""
+    from spectavi_tpu.pipeline.two_view import step4_triangulate as jax_step4
+    from spectavi_tpu.sfm import bundle_adjust as jax_bundle_adjust
+    from spectavi_tpu_torch.pipeline.two_view import step4_triangulate
+    from spectavi_tpu_torch.sfm import bundle_adjust
+
+    step3 = _ba_step3(rng)
+    RXj, rj = jax_step4(step3, quiet=True, ba=True, distortion=distortion)
+    RXt, rt = step4_triangulate(step3, quiet=True, ba=True, distortion=distortion, device="cpu")
+    np.testing.assert_allclose(rt["camera"], rj["camera"], atol=1e-8)
+    np.testing.assert_allclose(RXt, RXj, atol=1e-8)
+    assert not np.allclose(rt["camera"], step3[0]["camera"])
+    if distortion:
+        # the radial block of that bundle adjustment (step 4 prints it)
+        from spectavi_tpu_torch.sfm import rotation_to_rvec
+
+        ransac, x0, x1 = step3[:3]
+        n = x0.shape[0]
+        cams0 = np.zeros((2, 6))
+        cams0[1, :3] = rotation_to_rvec(ransac["camera"][:, :3])
+        cams0[1, 3:] = ransac["camera"][:, 3]
+        RX0 = step4_triangulate(step3, quiet=True, device="cpu")[0]
+        args = (cams0, RX0[:, :3], np.repeat([0, 1], n), np.tile(np.arange(n), 2),
+                np.vstack([x0[:, :2], x1[:, :2]]))
+        kt = bundle_adjust(*args, max_iters=10, estimate_distortion=True, device="cpu")[3]
+        kj = jax_bundle_adjust(*args, max_iters=10, estimate_distortion=True)[3]
+        np.testing.assert_allclose(kt, kj, atol=1e-8)
+        assert kt[0] < -0.05  # the lens's barrel term is found
+    else:
+        RX0, r0 = step4_triangulate(step3, quiet=True, distortion=True, device="cpu")
+        np.testing.assert_array_equal(r0["camera"], step3[0]["camera"])
 
 
 def test_resolve_matching_method():
