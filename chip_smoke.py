@@ -423,13 +423,19 @@ def k1_cases(torch, gen):
     ]
 
 
-def check_k1(torch, l2nn):
+def k1_main_inputs(torch):
+    """``check_K1``'s main case, X = Y = 28000 seeded uint8 rows of D =
+    144: ``(generator, x, y)``, the generator ready for the other cases."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
-    X = Y = 28000
-    D = 144
-    x = torch.randint(0, 256, (X, D), generator=gen, device="cuda", dtype=torch.uint8)
-    y = torch.randint(0, 256, (Y, D), generator=gen, device="cuda", dtype=torch.uint8)
+    x = torch.randint(0, 256, (28000, 144), generator=gen, device="cuda", dtype=torch.uint8)
+    y = torch.randint(0, 256, (28000, 144), generator=gen, device="cuda", dtype=torch.uint8)
+    return gen, x, y
+
+
+def check_k1(torch, l2nn):
+    gen, x, y = k1_main_inputs(torch)
+    (X, D), Y = x.shape, y.shape[0]
     cases = [("main", x, y)] + k1_cases(torch, gen)
     for name, xc, yc in cases:
         ik2, dk2 = l2nn.l2_topk2_cuda(xc, yc)
@@ -844,18 +850,33 @@ def track_peak(torch, mod, name, peaks):
     return lambda: setattr(mod, name, fn)
 
 
-def capture_step_tables(two_view, tables):
-    """Wrap ``two_view.make_two_view_step`` so that each step it builds
-    appends its padded descriptor tables ``(desc0, desc1)`` to
-    ``tables``; returns a function that undoes it."""
+def capture_step_tables(torch, two_view, tables):
+    """Wrap ``two_view.make_two_view_step`` so that each call of a step
+    it builds appends a dict to ``tables``: the step's keyword
+    arguments (``kw``), its padded inputs (``desc0, desc1, pts0, pts1,
+    nx, ny``), the ``(B, trials, 7)`` sample table it drew (``sample``)
+    and its outputs (``out``); returns a function that undoes it."""
     make = two_view.make_two_view_step
 
     def wrapped_make(*a, **k):
         step = make(*a, **k)
 
-        def wrapped_step(desc0, desc1, *r, **kk):
-            tables.append((desc0, desc1))
-            return step(desc0, desc1, *r, **kk)
+        def wrapped_step(desc0, desc1, pts0, pts1, nx, ny, **kk):
+            draws, draw = [], two_view.sample_subsets
+
+            def record(*sa, **sk):
+                draws.append(draw(*sa, **sk))
+                return draws[-1]
+
+            two_view.sample_subsets = record
+            try:
+                out = step(desc0, desc1, pts0, pts1, nx, ny, **kk)
+            finally:
+                two_view.sample_subsets = draw
+            sample = torch.stack(draws) if draws else kk.get("sample")
+            tables.append({"kw": k, "desc0": desc0, "desc1": desc1, "pts0": pts0,
+                           "pts1": pts1, "nx": nx, "ny": ny, "sample": sample, "out": out})
+            return out
 
         return wrapped_step
 
@@ -870,7 +891,7 @@ def check_sfm_kernels(torch, sift, l2nn, so, sd, tables, gray):
     view with keypoints (as ``check_K2`` / ``check_K3``)."""
     if not tables:
         raise AssertionError("the 10-view run built no pair step")
-    d0, d1 = tables[-1]
+    d0, d1 = tables[-1]["desc0"], tables[-1]["desc1"]
     for b in range(d0.shape[0]):
         ik, dk = l2nn.l2_topk2_cuda(d0[b], d1[b])
         ip, dp = l2nn.l2_topk_mxu(d0[b], d1[b])
@@ -918,7 +939,7 @@ def phase_sfm(torch, np, wrappers, profile_dir):
     cold_s = time.perf_counter() - t0
     pair_peaks, tables = [], []
     undo = track_peak(torch, sfm_mod, "_match_pairs_batched", pair_peaks)
-    undo_tables = capture_step_tables(two_view, tables)
+    undo_tables = capture_step_tables(torch, two_view, tables)
     for mod_ in wrappers.values():
         mod_.launches = 0
     torch.cuda.synchronize()
@@ -939,16 +960,17 @@ def phase_sfm(torch, np, wrappers, profile_dir):
             and launches["sift_desc"] > 0):
         raise AssertionError(f"the 10-view run did not launch the kernels as expected: {launches}")
     check_sfm_kernels(torch, sift, l2nn, so, sd, tables, grays[0])
+    step_capture = tables[-1]
     del tables
     run_ms = profile_run(torch, lambda: sfm_run(torch, grays, K, "cuda"), profile_dir, warm_s,
                          "profile_sfm", "sfm_trace.json", host_ops=False)
-    return warm, K, launches, run_ms
+    return warm, K, launches, run_ms, step_capture
 
 
-def phase_ba_check(torch, np, res, K):
-    """``bundle_adjust_device`` on the warm 10-view problem (its solution
-    perturbed, seeded): twice on the card, once on the CPU, float64."""
-    from spectavi_tpu_torch.sfm import bundle_adjust_device, tracks_to_observations
+def ba_problem(np, res, K):
+    """The warm 10-view run's BA problem, its solution perturbed (seeded):
+    ``(cams0, pts0, cam_idx, pt_idx, uv)`` numpy."""
+    from spectavi_tpu_torch.sfm import tracks_to_observations
 
     iK = np.linalg.inv(K)
     pts_cal = []
@@ -960,6 +982,15 @@ def phase_ba_check(torch, np, res, K):
     cams0 = res["cams"].copy()
     cams0[1:] += 1e-3 * rng.standard_normal(cams0[1:].shape)
     pts0 = res["points"] + 1e-3 * rng.standard_normal(res["points"].shape)
+    return cams0, pts0, ci, pi, uv
+
+
+def phase_ba_check(torch, np, res, K):
+    """``bundle_adjust_device`` on the warm 10-view problem (its solution
+    perturbed, seeded): twice on the card, once on the CPU, float64."""
+    from spectavi_tpu_torch.sfm import bundle_adjust_device
+
+    cams0, pts0, ci, pi, uv = ba_problem(np, res, K)
     runs, secs = [], []
     for dev in ("cuda", "cuda", "cpu"):
         torch.cuda.synchronize()
@@ -1109,6 +1140,292 @@ def phase_sfm_cpu_parity(torch, np):
         raise AssertionError(f"the card and the CPU disagree on the 3-view scene ({bad}): {summ}")
 
 
+# --- distribution over torch.distributed ----------------------------
+
+# the distributed phase's jobs: backend, ranks, matching meshes (n_pairs, n_blocks).
+# NCCL refuses two ranks on one card, so the 4-rank job is gloo, over CUDA tensors
+DIST_JOBS = {"nccl_1_rank": ("nccl", 1, ((1, 1),)), "gloo_4_ranks": ("gloo", 4, ((1, 4), (2, 2)))}
+DIST_TIMEOUT_S = 300
+# LM damping of the sharded BA steps
+DIST_LAM = 1e-3
+
+
+def median_ms(np, fn, sync, n=5):
+    """Median host-clock milliseconds of ``n`` calls of ``fn``, each
+    between two calls of ``sync``."""
+    t = []
+    for _ in range(n):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        t.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(t))
+
+
+def dist_inputs(torch, np, res, K, cap, path):
+    """Write the distributed phase's inputs and single-card answers to
+    ``path`` (npz): ``check_K1``'s 28000 x 144 case and K1's answer; a
+    4096 x 128 byte case and ``l1_topk2_xla``'s; the warm 10-view run's
+    pair step (padded tables, the sample table it drew, its outputs,
+    reproduced here from that table); the ``ba_check`` problem with one
+    ``ba_step`` from it, and its observations padded for 4 ranks and
+    sharded by point.  Returns the median ms of the single-card calls
+    (K1, ``l1_topk2_xla``, the step, ``ba_step``) on those inputs."""
+    from spectavi_tpu_torch.match import l1_topk2_xla
+    from spectavi_tpu_torch.ops import l2nn
+    from spectavi_tpu_torch.parallel import make_two_view_step
+    from spectavi_tpu_torch.sfm import ba_cost, ba_step, pad_observations
+    from spectavi_tpu_torch.sfm.distributed import shard_observations_by_point
+
+    N = lambda t: t.cpu().numpy()
+    out = {}
+    _, x, y = k1_main_inputs(torch)
+    out["k1_x"], out["k1_y"] = N(x), N(y)
+    out["k1_idx"], out["k1_dist"] = (N(t) for t in l2nn.l2_topk2_cuda(x, y))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    lx, ly = (torch.randint(0, 256, (4096, 128), generator=gen, device="cuda", dtype=torch.uint8)
+              for _ in range(2))
+    out["l1_x"], out["l1_y"] = N(lx), N(ly)
+    out["l1_idx"], out["l1_dist"] = (N(t) for t in l1_topk2_xla(lx, ly, device="cuda"))
+    if cap["sample"] is None:
+        raise AssertionError("the 10-view run's pair step drew no sample table")
+    names = ("E", "P1", "count", "inl", "midx0", "ratio_ok")
+    again = make_two_view_step(**cap["kw"])(cap["desc0"], cap["desc1"], cap["pts0"], cap["pts1"],
+                                            cap["nx"], cap["ny"], sample=cap["sample"])
+    for name, a, b in zip(names, again, cap["out"]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"the pair step handed its own sample table changed {name}")
+        out["step_" + name] = N(b)
+    for k in ("desc0", "desc1", "pts0", "pts1", "sample"):
+        out[k] = N(cap[k])
+    out["nx"], out["ny"] = np.asarray(cap["nx"]), np.asarray(cap["ny"])
+    out["step_kw"] = np.array(json.dumps(cap["kw"]))
+    cams0, pts0, ci, pi, uv = ba_problem(np, res, K)
+    w = np.ones(len(ci))
+    fixed = np.zeros(len(cams0), bool)
+    fixed[0] = True
+    out.update(ba_cams=cams0, ba_pts=pts0, ba_ci=ci, ba_pi=pi, ba_uv=uv, ba_w=w, ba_fixed=fixed)
+    T = lambda a: torch.as_tensor(a, device="cuda")
+    nc, npt, cost = ba_step(T(cams0), T(pts0), T(ci), T(pi), T(uv), T(w),
+                            torch.tensor(DIST_LAM, dtype=torch.float64, device="cuda"), T(fixed),
+                            k=torch.zeros(2, dtype=torch.float64, device="cuda"), cg_iters=100)
+    out.update(ba_new_cams=N(nc), ba_new_pts=N(npt), ba_cost=N(cost),
+               ba_after=N(ba_cost(nc, npt, ci, pi, T(uv), T(w))))
+    # the same calls on one card, timed as the workers time theirs
+    step1 = make_two_view_step(**cap["kw"])
+    lam = torch.tensor(DIST_LAM, dtype=torch.float64, device="cuda")
+    zk = torch.zeros(2, dtype=torch.float64, device="cuda")
+    single = {
+        "l2_topk2": lambda: l2nn.l2_topk2_cuda(x, y),
+        "l1_topk2_xla": lambda: l1_topk2_xla(lx, ly, device="cuda"),
+        "step": lambda: step1(cap["desc0"], cap["desc1"], cap["pts0"], cap["pts1"], cap["nx"],
+                              cap["ny"], sample=cap["sample"]),
+        "ba_step": lambda: ba_step(T(cams0), T(pts0), T(ci), T(pi), T(uv), T(w), lam, T(fixed),
+                                   k=zk, cg_iters=100),
+    }
+    ms = {name: median_ms(np, fn, torch.cuda.synchronize) for name, fn in single.items()}
+    for prefix, arrs in (("pad", pad_observations(ci, pi, uv, w, 4)),
+                         ("aligned", shard_observations_by_point(4, ci, pi, uv, w))):
+        for k, a in zip(("ci", "pi", "uv", "w"), arrs):
+            out[f"{prefix}_{k}"] = a
+    np.savez(path, **out)
+    return ms
+
+
+def run_dist_job(name, npz, device="cuda"):
+    """Start the ranks of job ``name`` (``DIST_JOBS``) as processes of
+    this script (``--dist-worker``) that meet through a file under
+    ``build/``, wait for them (killing every one after
+    ``DIST_TIMEOUT_S``), and return each rank's report."""
+    import shutil
+
+    backend, world, _ = DIST_JOBS[name]
+    tmp = os.path.join(ROOT, "build", "dist_" + name)
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    cmd = [sys.executable, os.path.abspath(__file__), "--dist-worker", name, device,
+           "file://" + os.path.join(tmp, "rendezvous"), npz, tmp]
+    procs = [subprocess.Popen(cmd + [str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    logs = []
+    try:
+        t_end = time.perf_counter() + DIST_TIMEOUT_S
+        for p in procs:
+            logs.append(p.communicate(timeout=max(t_end - time.perf_counter(), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"distributed job {name}, rank {r} failed:\n{log[-6000:]}")
+    return [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(world)]
+
+
+def dist_worker(argv):
+    """One rank of a distributed job: ``JOB DEVICE RENDEZVOUS NPZ OUTDIR
+    RANK``.  Drives the mesh layer with every launch count at 0 (sharded
+    K1 matching on each mesh, sharded L1 on 4 ranks, the mesh two-view
+    step, 5 sharded BA steps for each observation layout), reads the
+    counts, checks each answer against the single-card one, times each
+    call (median of 5) and writes ``rank<RANK>.json`` to OUTDIR."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    name, device, rdv, npz, out_dir, rank = argv
+    rank = int(rank)
+    backend, world, shapes = DIST_JOBS[name]
+    sys.path.insert(0, ROOT)
+    from spectavi_tpu_torch.ops import l2nn
+    from spectavi_tpu_torch.ops import sift_desc as sd
+    from spectavi_tpu_torch.ops import sift_orient as so
+    from spectavi_tpu_torch.parallel import (BLOCKS, PAIRS, gather_pairs, initialize, local_shard,
+                                             make_mesh, make_two_view_step, sharded_l1_topk2,
+                                             sharded_l2_topk2)
+    from spectavi_tpu_torch.sfm import ba_cost, make_sharded_ba_step
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    initialize(rdv, world, rank, backend=backend)
+    inp = dict(np.load(npz))
+    meshes = {f"{p}x{b}": make_mesh(p, b, device_type=device, backend=backend) for p, b in shapes}
+    ba_mesh = make_mesh(device_type=device, backend=backend)  # every rank on "pairs"
+    dev = ba_mesh.device
+    T = lambda a: torch.as_tensor(a, device=dev)
+    N = lambda t: t.cpu().numpy()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        if world > 1:
+            tdist.barrier()
+
+    calls = {}
+    k1x, k1y = T(inp["k1_x"]), T(inp["k1_y"])
+    for mname, m in meshes.items():
+        calls["sharded_l2_" + mname] = lambda m=m: sharded_l2_topk2(m, local_shard(m, k1x, BLOCKS),
+                                                                    k1y)
+    step_name, step_mesh = list(meshes.items())[-1]
+    if world > 1:
+        l1x, l1y = T(inp["l1_x"]), T(inp["l1_y"])
+        calls["sharded_l1_" + step_name] = lambda: sharded_l1_topk2(
+            step_mesh, local_shard(step_mesh, l1x, BLOCKS), l1y)
+    B = len(inp["nx"])
+    Bm = B - B % step_mesh.shape[PAIRS]
+    step_in = [T(inp[k][:Bm]) for k in ("desc0", "desc1", "pts0", "pts1")]
+    step_in += [inp["nx"][:Bm], inp["ny"][:Bm]]
+    step = make_two_view_step(mesh=step_mesh, **json.loads(str(inp["step_kw"])))
+    calls["step_" + step_name] = lambda: step(*step_in, sample=inp["sample"][:Bm])
+    f64 = dict(dtype=torch.float64, device=dev)
+    cams0, pts0, fixed = T(inp["ba_cams"]), T(inp["ba_pts"]), T(inp["ba_fixed"])
+    lam, k = torch.tensor(DIST_LAM, **f64), torch.zeros(2, **f64)
+    layouts = ({"interleaved": ("ba", False)} if world == 1 else
+               {"interleaved": ("pad", False), "point_aligned": ("aligned", True)})
+    ba = {}
+    for lname, (prefix, aligned) in layouts.items():
+        obs = [local_shard(ba_mesh, T(inp[f"{prefix}_{c}"]), PAIRS) for c in ("ci", "pi", "uv", "w")]
+        ba[lname] = (make_sharded_ba_step(ba_mesh, cg_iters=100, point_aligned=aligned), obs)
+
+    def ba_steps(lname, n):
+        bstep, obs = ba[lname]
+        cams, pts, costs = cams0, pts0, []
+        for _ in range(n):
+            cams, pts, cost = bstep(cams, pts, *obs, lam, fixed, k)
+            costs.append(cost)
+        return cams, pts, costs
+
+    # the distributed path, every count at 0
+    wrappers = {"l2nn_top2": l2nn, "sift_orient_hist": so, "sift_desc": sd}
+    for mod in wrappers.values():
+        mod.launches = 0
+    sync()
+    got = {cname: fn() for cname, fn in calls.items()}
+    got.update({"ba_" + lname: ba_steps(lname, 5) for lname in ba})
+    sync()
+    launches = {wname: mod.launches for wname, mod in wrappers.items()}
+
+    checks = {}
+    for cname, (idx, dist) in ((c, got[c]) for c in got if c.startswith("sharded_")):
+        ref = "k1" if cname.startswith("sharded_l2") else "l1"
+        checks[cname + "_exact"] = bool(np.array_equal(N(idx), inp[ref + "_idx"])
+                                        and np.array_equal(N(dist), inp[ref + "_dist"]))
+    full = [N(t) for t in gather_pairs(step_mesh, got["step_" + step_name])]
+    for sname, a in zip(("E", "P1", "count", "inl", "midx0", "ratio_ok"), full):
+        ref = inp["step_" + sname][:Bm]
+        if sname in ("E", "P1"):
+            checks[f"step_{sname}_max_abs_err"] = float(np.abs(a - ref).max())
+        else:
+            checks[f"step_{sname}_identical"] = bool(np.array_equal(a, ref))
+    checks["step_pairs"] = int(Bm)
+    obs_full = [T(inp["ba_" + c]) for c in ("ci", "pi", "uv", "w")]
+    for lname in ba:
+        cams, pts, costs = got["ba_" + lname]
+        c1, p1, (cost1,) = ba_steps(lname, 1)
+        c0 = float(costs[0])
+        after = float(ba_cost(c1, p1, *obs_full))
+        row = {"cost": c0, "cost_rel_err": abs(c0 - float(inp["ba_cost"])) / float(inp["ba_cost"]),
+               "after_rel_err": abs(after - float(inp["ba_after"])) / float(inp["ba_after"]),
+               "costs_5": [float(c) for c in costs] + [float(ba_cost(cams, pts, *obs_full))]}
+        if world == 1:  # a one-rank reduction is the identity
+            row["identical_to_ba_step"] = bool(
+                N(c1).tobytes() == inp["ba_new_cams"].tobytes()
+                and N(p1).tobytes() == inp["ba_new_pts"].tobytes()
+                and N(cost1).tobytes() == inp["ba_cost"].tobytes())
+        checks["ba_" + lname] = row
+
+    def passed():
+        ok = launches["l2nn_top2"] > 0
+        for key, v in checks.items():
+            if key.endswith(("_exact", "_identical")):
+                ok &= v
+            elif key.endswith("_max_abs_err"):
+                ok &= v <= 1e-6
+            elif key.startswith("ba_"):
+                ok &= v["cost_rel_err"] <= 1e-10 and v["costs_5"][-1] < v["costs_5"][0]
+                ok &= v.get("identical_to_ba_step", True) and v["after_rel_err"] <= 1e-4
+        return bool(ok)
+
+    timed = dict(calls, **{"ba_step_" + lname: (lambda lname=lname: ba_steps(lname, 1))
+                           for lname in ba})
+    ms = {cname: median_ms(np, fn, sync) for cname, fn in timed.items()}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "backend": backend, "world": world,
+                   "coords": {m: [mesh.coords[PAIRS], mesh.coords[BLOCKS]]
+                              for m, mesh in meshes.items()},
+                   "launches": launches, "checks": checks, "ms": ms, "ok": passed()}, f)
+    tdist.destroy_process_group()
+    return 0
+
+
+def phase_distributed(torch, np, res, K, cap, smi):
+    """The mesh layer on the card in two jobs of ranks: NCCL on one rank
+    (a ``(1, 1)`` mesh) and gloo on four ranks sharing the card over
+    CUDA tensors (``(1, 4)`` and ``(2, 2)``).  Returns each job's
+    launches by wrapper and rank."""
+    npz = os.path.join(ROOT, "build", "dist_inputs.npz")
+    single_ms = dist_inputs(torch, np, res, K, cap, npz)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reports, bad = {}, []
+    for name in DIST_JOBS:
+        t0 = time.perf_counter()
+        ranks = run_dist_job(name, npz)
+        reports[name] = {"seconds": time.perf_counter() - t0, "backend": ranks[0]["backend"],
+                         "ranks": len(ranks), "launches": [r["launches"] for r in ranks],
+                         "coords": [r["coords"] for r in ranks], "checks": ranks[0]["checks"],
+                         "ms_rank0": ranks[0]["ms"], "ok": [r["ok"] for r in ranks]}
+        bad += [f"{name} rank {r['rank']}" for r in ranks if not r["ok"]]
+    emit("distributed", card=smi, single_card_ms=single_ms, **reports)
+    if bad:
+        raise AssertionError(f"the distributed phase failed its gates on {bad}")
+    return {name: {w: [r[w] for r in rep["launches"]] for w in rep["launches"][0]}
+            for name, rep in reports.items()}
+
+
 def rotation_angle_deg(Ra, Rb):
     import numpy as np
 
@@ -1117,6 +1434,8 @@ def rotation_angle_deg(Ra, Rb):
 
 
 def main(argv):
+    if argv[:1] == ["--dist-worker"]:
+        return dist_worker(argv[1:])
     import numpy as np
     import torch
 
@@ -1249,7 +1568,8 @@ def main(argv):
     # the multi-view phases, each with its own clock
     phase_s = {"before_sfm": time.perf_counter() - t_start}
     t0 = time.perf_counter()
-    warm_sfm, sfm_K, launches_sfm, run_ms_sfm = phase_sfm(torch, np, wrappers, profile_dir)
+    warm_sfm, sfm_K, launches_sfm, run_ms_sfm, step_capture = phase_sfm(torch, np, wrappers,
+                                                                         profile_dir)
     phase_s["sfm"] = time.perf_counter() - t0
     for name, fn, args in (("ba_check", phase_ba_check, (warm_sfm, sfm_K)),
                            ("pnp_cap", phase_pnp_cap, ()), ("sfm_scale", phase_sfm_scale, ()),
@@ -1257,7 +1577,11 @@ def main(argv):
         t0 = time.perf_counter()
         fn(torch, np, *args)
         phase_s[name] = time.perf_counter() - t0
-    del warm_sfm
+    # the mesh layer in worker processes, each counting its own launches
+    t0 = time.perf_counter()
+    launches_dist = phase_distributed(torch, np, warm_sfm, sfm_K, step_capture, smi)
+    phase_s["distributed"] = time.perf_counter() - t0
+    del warm_sfm, step_capture
 
     kernels = []
     for name, res, src, rep in (
@@ -1275,6 +1599,8 @@ def main(argv):
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
             "run_ms": run_ms[name], "launches_sfm": launches_sfm[name],
             "run_ms_sfm": run_ms_sfm[name],
+            # by rank, in each job of the distributed phase
+            "launches_dist": {job: counts[name] for job, counts in launches_dist.items()},
         })
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=phase_s)
     print(json.dumps({"kernels": kernels}), flush=True)

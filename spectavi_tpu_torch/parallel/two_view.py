@@ -1,12 +1,18 @@
-"""The batched two-view step: matching, ratio test and RANSAC for a
-batch of image pairs.
+"""Sharded matching and the two-view step for a batch of image pairs.
 
-Port of ``spectavi_tpu/parallel/two_view.py::make_two_view_step`` for
-one card: the pairs are a batch dimension and the database is not split
-over blocks, so there is no merge across devices.  Per pair: exact L2
-top-2 (:func:`spectavi_tpu_torch.ops.l2nn.l2_topk2`, the CUDA kernel on
-the card, one launch a pair), the inverted-Lowe ratio test on squared
-distances, compaction of the survivors into a static bucket, then
+Port of ``spectavi_tpu/parallel/two_view.py``.  Image pairs are
+data-parallel over the ``pairs`` mesh axis, and within a pair the
+descriptor database is split over the ``blocks`` axis: each rank
+computes exact top-2 neighbours against its block
+(:func:`spectavi_tpu_torch.ops.l2nn.l2_topk2`, the CUDA kernel on the
+card), then the partial top-2 lists are merged with an all-gather over
+the ``blocks`` group (:func:`_merge_block_topk`).
+
+On one card without a mesh the pairs are a batch dimension and the
+database is not split, so there is no merge.  Per pair: exact L2 top-2
+(one kernel launch a pair, or a block of a pair on a mesh), the
+inverted-Lowe ratio test on squared distances, compaction of the
+survivors into a static bucket, then
 :func:`spectavi_tpu_torch.mvg.ransac.ransac_essential_core` over all
 pairs at once.
 """
@@ -16,12 +22,69 @@ from __future__ import annotations
 import torch
 
 from spectavi_tpu_torch import seeded_generator
+from spectavi_tpu_torch.match.bruteforce import l1_topk2_xla, topk_lowest
 from spectavi_tpu_torch.mvg.ransac import ransac_essential_core, sample_subsets
 from spectavi_tpu_torch.ops.l2nn import l2_topk2
+from spectavi_tpu_torch.parallel.mesh import BLOCKS, PAIRS, all_gather, local_shard
+
+
+def _merge_block_topk(idx, dist, group, block_rank, block_rows):
+    """Merge each block's local top-2 (local indices) into the global
+    top-2 on every rank of the ``blocks`` ``group``.
+
+    ``block_rank`` is this rank's ``blocks`` coordinate (not its global
+    rank) and ``block_rows`` the rows of a block.  The candidates are
+    laid out block-major, ``(Y, n_blocks * 2)``, so among equal
+    distances the lower position is the lower global index, and the
+    top 2 with ties to the lower position is ``lax.top_k``'s answer."""
+    gidx = idx + block_rank * block_rows
+    all_idx = all_gather(gidx, group)  # (nb, Y, 2)
+    all_dist = all_gather(dist, group)
+    nb, Y = all_idx.shape[:2]
+    idx2 = all_idx.transpose(0, 1).reshape(Y, nb * 2)
+    d2 = all_dist.transpose(0, 1).reshape(Y, nb * 2)
+    sel, top = topk_lowest(d2.clone(), 2)
+    return idx2.gather(1, sel), top
+
+
+def _sharded_topk2(mesh, x_block, y, kernel):
+    if x_block.shape[0] < 2:
+        raise ValueError(f"a block needs at least 2 database rows, got {x_block.shape[0]}")
+    idx, dist = kernel(x_block, y)
+    return _merge_block_topk(idx, dist, mesh.groups[BLOCKS], mesh.coords[BLOCKS],
+                             x_block.shape[0])
+
+
+def sharded_l1_topk2(mesh, x_block, y):
+    """Exact top-2 L1 matching with the database split over ``blocks``.
+
+    ``x_block``: this rank's block of the ``(X, D)`` integer database
+    (:func:`spectavi_tpu_torch.parallel.mesh.local_shard` cuts it; X
+    divisible by the ``blocks`` size, 2 rows a block at least); ``y
+    (Y, D)``: the queries, the same on every rank of the group.
+    Returns ``(idx (Y, 2) int32 global rows, dist (Y, 2) int32)`` on
+    every rank of the group."""
+    return _sharded_topk2(mesh, x_block, y,
+                          lambda a, b: l1_topk2_xla(a, b, device=mesh.device))
+
+
+def sharded_l2_topk2(mesh, x_block, y):
+    """Exact top-2 squared-L2 matching of byte descriptors with the
+    database split over ``blocks``: the CUDA kernel on each block of
+    CUDA tensors, its plain version on the CPU.  Same contract as
+    :func:`sharded_l1_topk2`."""
+    return _sharded_topk2(mesh, x_block, y, l2_topk2)
+
+
+def gather_pairs(mesh, outs):
+    """The whole batch of a mesh step's per-rank outputs: each tensor of
+    ``outs`` all-gathered over the ``pairs`` group and laid out in pair
+    order."""
+    return tuple(all_gather(t, mesh.groups[PAIRS]).flatten(0, 1) for t in outs)
 
 
 def make_two_view_step(trials=512, reproj_allowed=1e-3, svr_allowed=3e-2, min_ratio=1.75,
-                       compact_to=4096):
+                       compact_to=4096, mesh=None):
     """Build the two-view step for a batch of pairs.
 
     The step takes ``desc0 (B, X, D)`` uint8 descriptors of image 0
@@ -43,21 +106,46 @@ def make_two_view_step(trials=512, reproj_allowed=1e-3, svr_allowed=3e-2, min_ra
     ``min(compact_to, Y)``-row bucket by a stable descending sort of the
     ratio margin (ties to the lower query index, as ``lax.top_k``), so
     only the strongest ``compact_to`` survivors compete in RANSAC and
-    can appear in the inlier mask."""
+    can appear in the inlier mask.
+
+    ``mesh``: a :class:`spectavi_tpu_torch.parallel.mesh.Mesh` makes
+    this the ``(pairs, blocks)`` step.  Every rank passes the whole
+    batch (``B`` divisible by the ``pairs`` size, ``X`` by the
+    ``blocks`` size); a rank takes its ``B / n_pairs`` pairs, matches
+    its block of their database rows (:func:`sharded_l2_topk2`), and
+    runs the ratio test, compaction and RANSAC of its pairs, as every
+    rank of its ``blocks`` group does on the same inputs.  A ``sample``
+    table is cut the same way; with a ``generator`` instead, the ranks
+    of a ``blocks`` group agree when their generators carry the same
+    seed, and each draws its own pairs' tables only, so the draws
+    differ from one card's.  The step returns the rank's own pairs;
+    :func:`gather_pairs` gathers the batch."""
+
+    def match(d0, d1):
+        if mesh is None:
+            return l2_topk2(d0, d1)
+        return sharded_l2_topk2(mesh, d0, d1)
 
     def step(desc0, desc1, pts0, pts1, nx, ny, sample=None, generator=None):
-        B, Y = desc1.shape[:2]
         dev = pts0.device
-        idx, dist = (torch.stack(t) for t in zip(*(l2_topk2(desc0[b], desc1[b])
+        nx_t = torch.as_tensor(nx, device=dev)
+        ny_t = torch.as_tensor(ny, device=dev)
+        if mesh is not None:
+            desc0 = local_shard(mesh, local_shard(mesh, desc0, PAIRS), BLOCKS, dim=1)
+            desc1, pts0, pts1, nx_t, ny_t = (local_shard(mesh, a, PAIRS)
+                                             for a in (desc1, pts0, pts1, nx_t, ny_t))
+            if sample is not None:
+                sample = local_shard(mesh, sample, PAIRS)
+        B, Y = desc1.shape[:2]
+        idx, dist = (torch.stack(t) for t in zip(*(match(desc0[b], desc1[b])
                                                   for b in range(B))))
         idx = idx.long()
         # inverted-Lowe ratio test on squared L2 distances
         d1 = torch.clamp(dist[..., 0].to(pts0.dtype), min=1e-12)
         d2 = dist[..., 1].to(pts0.dtype)
         qi = torch.arange(Y, device=dev)
-        nx_t = torch.as_tensor(nx, device=dev)[:, None]
-        ny_t = torch.as_tensor(ny, device=dev)[:, None]
-        ratio_ok = (d2 >= (min_ratio**2) * d1) & (idx[..., 0] < nx_t) & (qi[None] < ny_t)
+        ratio_ok = ((d2 >= (min_ratio**2) * d1) & (idx[..., 0] < nx_t[:, None])
+                    & (qi[None] < ny_t[:, None]))
         C = min(compact_to, Y)
         margin = torch.where(ratio_ok, d2 / d1, torch.full_like(d1, -1.0))
         topq = torch.sort(margin, dim=1, descending=True, stable=True).indices[:, :C]

@@ -6,12 +6,13 @@ Usage:
         [--ransac_quality {low,medium,high,ultra,uber}]
         [--matching_method {auto,bruteforce,cascading-hash,l2-mxu}]
         [--min_ratio R] [--rsf F] [--cache] [--plots] [--seed N]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--trace DIR]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 from spectavi_tpu_torch.pipeline.two_view import run_two_view
 
@@ -47,6 +48,9 @@ def main(argv=None):
     parser.add_argument("--plots", action="store_true",
                         help="also save keypoint/match visualizations (needs matplotlib)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--trace", default=None, metavar="DIR",
+                        help="write a torch.profiler trace of the run to DIR "
+                        "(chrome://tracing, Perfetto or tensorboard)")
     args = parser.parse_args(argv)
 
     import torch
@@ -59,22 +63,28 @@ def main(argv=None):
     if args.reproj is not None:
         ransac_options = {"reprojection_error_allowed": args.reproj,
                           "find_best_even_in_failure": True}
-    run_two_view(
-        args.images,
-        args.K,
-        outdir=args.outdir,
-        matching_method=args.matching_method,
-        min_ratio=args.min_ratio,
-        ransac_quality=args.ransac_quality,
-        rsf=args.rsf,
-        cache=args.cache,
-        generator=generator,
-        ransac_options=ransac_options,
-        ba=args.ba,
-        distortion=args.distortion,
-        plots=args.plots,
-        device=args.device,
-    )
+    trace_ctx = contextlib.nullcontext()
+    if args.trace:
+        from spectavi_tpu_torch.utils.profiling import trace
+
+        trace_ctx = trace(args.trace)
+    with trace_ctx:
+        run_two_view(
+            args.images,
+            args.K,
+            outdir=args.outdir,
+            matching_method=args.matching_method,
+            min_ratio=args.min_ratio,
+            ransac_quality=args.ransac_quality,
+            rsf=args.rsf,
+            cache=args.cache,
+            generator=generator,
+            ransac_options=ransac_options,
+            ba=args.ba,
+            distortion=args.distortion,
+            plots=args.plots,
+            device=args.device,
+        )
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """``spectavi_tpu_torch.sfm`` — pose graph, PnP registration and bundle
-adjustment, with the public names of ``spectavi_tpu.sfm`` (the sharded
-BA, ``make_sharded_ba_step`` and ``pad_observations``, is not ported
-yet)."""
+adjustment, on one card or with the observations sharded over a process
+mesh (``make_sharded_ba_step``), with the public names of
+``spectavi_tpu.sfm``."""
 from spectavi_tpu_torch.sfm.ate import ate_rmse, camera_centers, umeyama  # noqa: F401
 from spectavi_tpu_torch.sfm.bundle_adjust import (  # noqa: F401
     ba_cost,
@@ -12,6 +12,10 @@ from spectavi_tpu_torch.sfm.bundle_adjust import (  # noqa: F401
     rotation_to_rvec,
 )
 from spectavi_tpu_torch.sfm.checkpoint import load_sfm_state, save_sfm_state  # noqa: F401
+from spectavi_tpu_torch.sfm.distributed import (  # noqa: F401
+    make_sharded_ba_step,
+    pad_observations,
+)
 from spectavi_tpu_torch.sfm.pose_graph import (  # noqa: F401
     build_tracks,
     chain_poses,

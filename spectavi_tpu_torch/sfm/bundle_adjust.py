@@ -275,8 +275,12 @@ def cg(matvec, b, maxiter, tol=1e-5, atol=0.0, batch_dims=0):
     return x
 
 
-def _ba_quantities(cams, pts, inc, uv, w, lam, k=None):
-    """U, V^-1, per-observation W, the gradient blocks and the cost."""
+def _ba_quantities(cams, pts, inc, uv, w, lam, k=None, reduce=None):
+    """U, V^-1, per-observation W, the gradient blocks and the cost.
+
+    ``reduce`` sums ``(U, V, bc, bp, cost)`` across shards of the
+    observations before the damping and the inverse (the distributed
+    step, :mod:`spectavi_tpu_torch.sfm.distributed`)."""
     if k is None:
         k = _zero_k(cams)
     r, Jc, Jp = _build_blocks(cams, pts, inc, uv, w, k)
@@ -285,6 +289,8 @@ def _ba_quantities(cams, pts, inc, uv, w, lam, k=None):
     bc = inc.cam(_tdot(Jc, r))  # (C, 6)
     bp = inc.pt(_tdot(Jp, r))  # (M, 3)
     cost = torch.sum(r * r)
+    if reduce is not None:
+        U, V, bc, bp, cost = reduce((U, V, bc, bp, cost))
     U = _damp(U, lam)
     V = _damp(V, lam)
     Vinv = inv3x3(V)
@@ -292,19 +298,38 @@ def _ba_quantities(cams, pts, inc, uv, w, lam, k=None):
     return U, Vinv, Wblk, bc, bp, cost
 
 
-def _schur_matvec(v, U, Vinv, Wblk, inc):
-    """``S v`` with ``S = U - W V^-1 W^T``, matrix-free over observations."""
+def _schur_matvec(v, U, Vinv, Wblk, inc, reduce=None, reduce_point="same"):
+    """``S v`` with ``S = U - W V^-1 W^T``, matrix-free over observations.
+
+    ``reduce`` sums the camera-space accumulation across shards and
+    ``reduce_point`` (``"same"``: ``reduce``) the point-space one; pass
+    ``reduce_point=None`` when every observation of a point lives on one
+    shard, where the local sum is already complete."""
+    if reduce_point == "same":
+        reduce_point = reduce
     y = inc.pt(_mtv(Wblk, v[inc.cam_idx]))  # (M, 3)
+    if reduce_point is not None:
+        y = reduce_point(y)
     z = _mv(Vinv, y)
     back = inc.cam(_mv(Wblk, z[inc.pt_idx]))  # (C, 6)
+    if reduce is not None:
+        back = reduce(back)
     return _mv(U, v) - back
 
 
-def _solve_schur(U, Vinv, Wblk, bc, bp, inc, fixed_cam_mask, cg_iters=100):
+def _solve_schur(U, Vinv, Wblk, bc, bp, inc, fixed_cam_mask, cg_iters=100, reduce=None,
+                 reduce_point="same"):
     """Solve the reduced camera system with CG, then back-substitute the
-    point updates.  ``fixed_cam_mask (C,)`` gauge-fixes cameras."""
+    point updates.  ``fixed_cam_mask (C,)`` gauge-fixes cameras.
+    ``reduce`` / ``reduce_point`` as in :func:`_schur_matvec`; the
+    right-hand side's and the back-substitution's accumulations take
+    ``reduce``.  The CG runs all ``cg_iters`` iterations, so every shard
+    makes the same collectives."""
     z0 = _mv(Vinv, bp)
-    rhs = -(bc - inc.cam(_mv(Wblk, z0[inc.pt_idx])))
+    rhs_acc = inc.cam(_mv(Wblk, z0[inc.pt_idx]))
+    if reduce is not None:
+        rhs_acc = reduce(rhs_acc)
+    rhs = -(bc - rhs_acc)
     free = (~fixed_cam_mask)[:, None]
     # select, never multiply: a NaN in a fixed block survives `nan * 0`
     rhs = torch.where(free, rhs, torch.zeros_like(rhs))
@@ -312,12 +337,14 @@ def _solve_schur(U, Vinv, Wblk, bc, bp, inc, fixed_cam_mask, cg_iters=100):
     def matvec(p):
         (v,) = p
         v = torch.where(free, v, torch.zeros_like(v))
-        out = _schur_matvec(v, U, Vinv, Wblk, inc)
+        out = _schur_matvec(v, U, Vinv, Wblk, inc, reduce, reduce_point)
         return (torch.where(free, out, v),)
 
     (dc,) = cg(matvec, (rhs,), maxiter=cg_iters)
     dc = dc * free
     acc = inc.pt(_mtv(Wblk, dc[inc.cam_idx]))
+    if reduce is not None:
+        acc = reduce(acc)
     dp = -_mv(Vinv, bp + acc)
     return dc, dp
 

@@ -125,7 +125,9 @@ def test_step2_raises_without_cuda(monkeypatch):
 def test_new_modules_are_walked():
     names = _modules()
     for name in ("match.ann", "match.bruteforce", "match.cascade_hash", "match.ivf",
-                 "match.kmedians", "pipeline.viz"):
+                 "match.kmedians", "pipeline.viz", "parallel.hosts", "parallel.mesh",
+                 "parallel.two_view", "sfm.distributed", "utils", "utils.hostops",
+                 "utils.profiling"):
         assert "spectavi_tpu_torch." + name in names
 
 
