@@ -65,10 +65,24 @@ Phases, one JSON line each:
                 on the CPU, with the loop and with the batched pair
                 backend (no pair retried): keypoints, matches and tracks
                 agree;
+* ``surface``   the JAX package's call forms on the card: the unmasked
+                pair step (``masked=False``, JAX's default) on the warm
+                10-view run's pair tables, K1 once a pair, byte for byte
+                equal to the masked step at full row counts; then
+                ``ransac_essential_batch``, ``pnp_ransac``,
+                ``nn_cascading_hash``, ``kmedians`` and ``kmeans_cells``
+                called positionally in JAX's order with a seeded
+                generator, each equal to the keyword call with the same
+                seed; milliseconds of each;
+* ``distributed`` the mesh layer in worker processes (``--dist-worker``):
+                one NCCL rank and four gloo ranks, each with its own
+                launch counts (``dist_worker``);
 * ``kernels``   one line for every kernel: launches in the warm two-view
                 run, ms, plain ms, bound ms and what bounds it, ``run_ms``,
-                its summed device time over the profiled warm run, and
-                ``launches_sfm`` / ``run_ms_sfm`` of the 10-view run.
+                its summed device time over the profiled warm run,
+                ``launches_sfm`` / ``run_ms_sfm`` of the 10-view run,
+                ``launches_surface`` of the unmasked step and
+                ``launches_dist`` by job and rank.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 last the contract line ``{"ok": true, "device": {...}}``.  Any failure
@@ -854,25 +868,27 @@ def capture_step_tables(torch, two_view, tables):
     """Wrap ``two_view.make_two_view_step`` so that each call of a step
     it builds appends a dict to ``tables``: the step's keyword
     arguments (``kw``), its padded inputs (``desc0, desc1, pts0, pts1,
-    nx, ny``), the ``(B, trials, 7)`` sample table it drew (``sample``)
-    and its outputs (``out``); returns a function that undoes it."""
+    nx, ny``), the ``(B, trials, 7)`` sample table drawn for it (one
+    ``sample_subsets`` draw a pair, in the RANSAC core: ``sample``) and
+    its outputs (``out``); returns a function that undoes it."""
+    ransac = sys.modules["spectavi_tpu_torch.mvg.ransac"]  # imported by two_view
     make = two_view.make_two_view_step
 
     def wrapped_make(*a, **k):
         step = make(*a, **k)
 
-        def wrapped_step(desc0, desc1, pts0, pts1, nx, ny, **kk):
-            draws, draw = [], two_view.sample_subsets
+        def wrapped_step(desc0, desc1, pts0, pts1, generator=None, nx=None, ny=None, **kk):
+            draws, draw = [], ransac.sample_subsets
 
             def record(*sa, **sk):
                 draws.append(draw(*sa, **sk))
                 return draws[-1]
 
-            two_view.sample_subsets = record
+            ransac.sample_subsets = record
             try:
-                out = step(desc0, desc1, pts0, pts1, nx, ny, **kk)
+                out = step(desc0, desc1, pts0, pts1, generator, nx, ny, **kk)
             finally:
-                two_view.sample_subsets = draw
+                ransac.sample_subsets = draw
             sample = torch.stack(draws) if draws else kk.get("sample")
             tables.append({"kw": k, "desc0": desc0, "desc1": desc1, "pts0": pts0,
                            "pts1": pts1, "nx": nx, "ny": ny, "sample": sample, "out": out})
@@ -1014,22 +1030,32 @@ def phase_ba_check(torch, np, res, K):
         raise AssertionError(f"card and CPU bundle adjustment differ by {rel} (relative)")
 
 
+def pnp_problems(torch, np, count, rows):
+    """``count`` seeded PnP problems ``(X, uv)`` of ``rows`` rows, the
+    first quarter of each outliers."""
+    from spectavi_tpu_torch.sfm import rodrigues
+
+    rng = np.random.default_rng(SEED)
+    problems = []
+    for _ in range(count):
+        rv, tv = rng.normal(0, 0.3, 3), rng.normal(0, 0.3, 3)
+        R = rodrigues(torch.as_tensor(rv)).numpy()
+        X = rng.standard_normal((rows, 3)) * [1, 1, 0.5] + [0, 0, 6.0]
+        Xc = X @ R.T + tv
+        uv = Xc[:, :2] / Xc[:, 2:] + rng.normal(0, 2e-4, (rows, 2))
+        n_out = rows // 4
+        uv[:n_out] += rng.uniform(0.05, 0.2, (n_out, 2)) * rng.choice([-1, 1], (n_out, 2))
+        problems.append((X, uv))
+    return problems
+
+
 def phase_pnp_cap(torch, np):
     """One ``pnp_ransac_batch`` dispatch at the chunk cap (8 problems of
     4096 rows: Bpad x Npad = 32768), 25% outliers: time and peak device
     memory."""
-    from spectavi_tpu_torch.sfm import pnp_ransac_batch, rodrigues
+    from spectavi_tpu_torch.sfm import pnp_ransac_batch
 
-    rng = np.random.default_rng(SEED)
-    problems = []
-    for _ in range(8):
-        rv, tv = rng.normal(0, 0.3, 3), rng.normal(0, 0.3, 3)
-        R = rodrigues(torch.as_tensor(rv)).numpy()
-        X = rng.standard_normal((4096, 3)) * [1, 1, 0.5] + [0, 0, 6.0]
-        Xc = X @ R.T + tv
-        uv = Xc[:, :2] / Xc[:, 2:] + rng.normal(0, 2e-4, (4096, 2))
-        uv[:1024] += rng.uniform(0.05, 0.2, (1024, 2)) * rng.choice([-1, 1], (1024, 2))
-        problems.append((X, uv))
+    problems = pnp_problems(torch, np, 8, 4096)
     pnp_ransac_batch(problems[:1], device="cuda")  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1140,6 +1166,112 @@ def phase_sfm_cpu_parity(torch, np):
         raise AssertionError(f"the card and the CPU disagree on the 3-view scene ({bad}): {summ}")
 
 
+def seeded(torch, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return gen
+
+
+def same_bytes(np, a, b):
+    """Whether two results (tensors, arrays, dicts or sequences of them)
+    hold the same values, byte for byte."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_bytes(np, a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_bytes(np, x, y) for x, y in zip(a, b))
+    a, b = (x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x) for x in (a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def phase_surface(torch, np, cap, wrappers):
+    """The JAX package's call forms on the card.  The unmasked pair step
+    (``make_two_view_step(mesh, trials, ...)``, JAX's default
+    ``masked=False``: keys fifth, four outputs) on the warm 10-view
+    run's padded pair tables, with every launch count at 0 around it
+    (K1 once a pair), against the masked step at full row counts on the
+    same tables and seed, byte for byte.  Then ``ransac_essential_batch``,
+    ``pnp_ransac``, ``nn_cascading_hash``, ``kmedians`` and
+    ``kmeans_cells`` called positionally in JAX's order, a seeded
+    generator where JAX takes its key, each against the keyword call
+    with the same seed.  Returns the step's launches by wrapper."""
+    from spectavi_tpu_torch import match
+    from spectavi_tpu_torch.match import ivf
+    from spectavi_tpu_torch.mvg import ransac_essential_batch
+    from spectavi_tpu_torch.parallel import make_two_view_step
+    from spectavi_tpu_torch.sfm import pnp_ransac
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    kw = cap["kw"]
+    d = (cap["desc0"], cap["desc1"], cap["pts0"], cap["pts1"])
+    B, X, Y = d[0].shape[0], d[0].shape[1], d[1].shape[1]
+    jax_args = (kw["trials"], kw["reproj_allowed"], kw["svr_allowed"], kw["min_ratio"])
+    unmasked = make_two_view_step(None, *jax_args, False, kw["compact_to"])
+    masked = make_two_view_step(None, *jax_args, True, kw["compact_to"])
+    for mod_ in wrappers.values():
+        mod_.launches = 0
+    out, step_ms = timed(lambda: unmasked(*d, seeded(torch, SEED + 3)))
+    launches = {name: mod_.launches for name, mod_ in wrappers.items()}
+    full, masked_ms = timed(lambda: masked(*d, seeded(torch, SEED + 3), np.full(B, X),
+                                           np.full(B, Y)))
+    counts = out[2].cpu().numpy()
+    step = {"pairs": B, "X": X, "Y": Y, "outputs": len(out), "ms": step_ms,
+            "masked_full_counts_ms": masked_ms, "counts": counts.tolist(),
+            "identical_to_masked_full_counts": len(out) == 4 and same_bytes(np, out, full[:4]),
+            "launches": launches}
+
+    forms = {}
+    # the pair tables' matches: pts0 at the nearest rows, the ratio mask
+    midx0, ratio_ok = cap["out"][4], cap["out"][5]
+    x0 = torch.take_along_dim(cap["pts0"], midx0[..., None], dim=1)
+    ransac = (x0, cap["pts1"], kw["trials"], kw["reproj_allowed"], kw["svr_allowed"], ratio_ok)
+    pos, ms = timed(lambda: ransac_essential_batch(seeded(torch, SEED + 4), *ransac))
+    kwd = ransac_essential_batch(generator=seeded(torch, SEED + 4), x0=ransac[0], x1=ransac[1],
+                                 trials=ransac[2], reproj_allowed=ransac[3],
+                                 svr_allowed=ransac[4], point_mask=ransac[5])
+    forms["ransac_essential_batch"] = {"equal": same_bytes(np, pos, kwd), "ms": ms,
+                                       "problems": B, "rows": Y,
+                                       "min_count": int(pos["count"].min())}
+    X3, uv = pnp_problems(torch, np, 1, 2048)[0]
+    pos, ms = timed(lambda: pnp_ransac(X3, uv, seeded(torch, SEED + 5), 512))
+    kwd = pnp_ransac(X3, uv, generator=seeded(torch, SEED + 5), trials=512)
+    forms["pnp_ransac"] = {"equal": same_bytes(np, pos, kwd), "ms": ms, "rows": 2048,
+                           "success": pos["success"], "n_inliers": pos["n_inliers"]}
+    # pair 0's descriptors as the matchers take them: de-meaned byte rows
+    nx0, ny0 = int(cap["nx"][0]), int(cap["ny"][0])
+    qx = (d[0][0, :nx0].float() - 128).cpu().numpy()
+    qy = (d[1][0, :ny0].float() - 128).cpu().numpy()
+    pos, ms = timed(lambda: match.nn_cascading_hash(qx, qy, 2, None, 2, 2,
+                                                    seeded(torch, SEED + 6), 512))
+    kwd = match.nn_cascading_hash(qx, qy, k=2, m=None, n=2, g=2,
+                                  generator=seeded(torch, SEED + 6), chunk=512)
+    forms["nn_cascading_hash"] = {"equal": same_bytes(np, pos, kwd), "ms": ms,
+                                  "rows": [nx0, ny0]}
+    pos, ms = timed(lambda: match.kmedians(seeded(torch, SEED + 7), qx, 30, 8))
+    kwd = match.kmedians(generator=seeded(torch, SEED + 7), x=qx, k=30, niter=8)
+    forms["kmedians"] = {"equal": same_bytes(np, pos, kwd), "ms": ms, "rows": nx0, "k": 30}
+    pos, ms = timed(lambda: ivf.kmeans_cells(qx, seeded(torch, SEED + 8), 64, 5))
+    kwd = ivf.kmeans_cells(x=qx, generator=seeded(torch, SEED + 8), n_cells=64, iters=5)
+    forms["kmeans_cells"] = {"equal": same_bytes(np, pos, kwd), "ms": ms, "rows": nx0,
+                             "n_cells": 64}
+    emit("surface", unmasked_step=step, jax_forms=forms)
+    bad = [name for name, f in forms.items() if not f["equal"]]
+    if not (step["identical_to_masked_full_counts"] and (counts > 0).all()
+            and launches["l2nn_top2"] == B):
+        bad.append("unmasked_step")
+    if not (forms["ransac_essential_batch"]["min_count"] > 0 and forms["pnp_ransac"]["success"]
+            and forms["pnp_ransac"]["n_inliers"] >= 1400):
+        bad.append("results")
+    if bad:
+        raise AssertionError(f"the surface phase failed on {bad}")
+    return launches
+
+
 # --- distribution over torch.distributed ----------------------------
 
 # the distributed phase's jobs: backend, ranks, matching meshes (n_pairs, n_blocks).
@@ -1193,7 +1325,7 @@ def dist_inputs(torch, np, res, K, cap, path):
         raise AssertionError("the 10-view run's pair step drew no sample table")
     names = ("E", "P1", "count", "inl", "midx0", "ratio_ok")
     again = make_two_view_step(**cap["kw"])(cap["desc0"], cap["desc1"], cap["pts0"], cap["pts1"],
-                                            cap["nx"], cap["ny"], sample=cap["sample"])
+                                            None, cap["nx"], cap["ny"], sample=cap["sample"])
     for name, a, b in zip(names, again, cap["out"]):
         if not torch.equal(a, b):
             raise AssertionError(f"the pair step handed its own sample table changed {name}")
@@ -1220,8 +1352,8 @@ def dist_inputs(torch, np, res, K, cap, path):
     single = {
         "l2_topk2": lambda: l2nn.l2_topk2_cuda(x, y),
         "l1_topk2_xla": lambda: l1_topk2_xla(lx, ly, device="cuda"),
-        "step": lambda: step1(cap["desc0"], cap["desc1"], cap["pts0"], cap["pts1"], cap["nx"],
-                              cap["ny"], sample=cap["sample"]),
+        "step": lambda: step1(cap["desc0"], cap["desc1"], cap["pts0"], cap["pts1"], None,
+                              cap["nx"], cap["ny"], sample=cap["sample"]),
         "ba_step": lambda: ba_step(T(cams0), T(pts0), T(ci), T(pi), T(uv), T(w), lam, T(fixed),
                                    k=zk, cg_iters=100),
     }
@@ -1305,20 +1437,20 @@ def dist_worker(argv):
             tdist.barrier()
 
     calls = {}
-    k1x, k1y = T(inp["k1_x"]), T(inp["k1_y"])
+    # the JAX package's calls: every rank passes the whole database, on
+    # the host, and each moves only its block to the card
+    k1x, k1y = torch.as_tensor(inp["k1_x"]), T(inp["k1_y"])
     for mname, m in meshes.items():
-        calls["sharded_l2_" + mname] = lambda m=m: sharded_l2_topk2(m, local_shard(m, k1x, BLOCKS),
-                                                                    k1y)
+        calls["sharded_l2_" + mname] = lambda m=m: sharded_l2_topk2(m, k1x, k1y)
     step_name, step_mesh = list(meshes.items())[-1]
     if world > 1:
-        l1x, l1y = T(inp["l1_x"]), T(inp["l1_y"])
-        calls["sharded_l1_" + step_name] = lambda: sharded_l1_topk2(
-            step_mesh, local_shard(step_mesh, l1x, BLOCKS), l1y)
+        l1x, l1y = torch.as_tensor(inp["l1_x"]), T(inp["l1_y"])
+        calls["sharded_l1_" + step_name] = lambda: sharded_l1_topk2(step_mesh, l1x, l1y)
     B = len(inp["nx"])
     Bm = B - B % step_mesh.shape[PAIRS]
     step_in = [T(inp[k][:Bm]) for k in ("desc0", "desc1", "pts0", "pts1")]
-    step_in += [inp["nx"][:Bm], inp["ny"][:Bm]]
-    step = make_two_view_step(mesh=step_mesh, **json.loads(str(inp["step_kw"])))
+    step_in += [None, inp["nx"][:Bm], inp["ny"][:Bm]]
+    step = make_two_view_step(step_mesh, **json.loads(str(inp["step_kw"])))
     calls["step_" + step_name] = lambda: step(*step_in, sample=inp["sample"][:Bm])
     f64 = dict(dtype=torch.float64, device=dev)
     cams0, pts0, fixed = T(inp["ba_cams"]), T(inp["ba_pts"]), T(inp["ba_fixed"])
@@ -1577,6 +1709,10 @@ def main(argv):
         t0 = time.perf_counter()
         fn(torch, np, *args)
         phase_s[name] = time.perf_counter() - t0
+    # the JAX package's call forms, the unmasked step with its own counts
+    t0 = time.perf_counter()
+    launches_surface = phase_surface(torch, np, step_capture, wrappers)
+    phase_s["surface"] = time.perf_counter() - t0
     # the mesh layer in worker processes, each counting its own launches
     t0 = time.perf_counter()
     launches_dist = phase_distributed(torch, np, warm_sfm, sfm_K, step_capture, smi)
@@ -1598,7 +1734,7 @@ def main(argv):
             "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
             "run_ms": run_ms[name], "launches_sfm": launches_sfm[name],
-            "run_ms_sfm": run_ms_sfm[name],
+            "run_ms_sfm": run_ms_sfm[name], "launches_surface": launches_surface[name],
             # by rank, in each job of the distributed phase
             "launches_dist": {job: counts[name] for job, counts in launches_dist.items()},
         })

@@ -12,10 +12,14 @@ absent; tests pass ``device="cpu"``, where every kernel wrapper runs
 its plain PyTorch version.  Nothing here imports ``jax``.
 
 Subpackages are not imported eagerly: ``import spectavi_tpu_torch``
-only pins the matmul precision.
+only pins the matmul precision, and ``spectavi_tpu_torch.mvg`` (or any
+other subpackage) is imported on its first access, so the attributes
+that ``import spectavi_tpu`` binds are here too without touching CUDA.
 """
 
 __version__ = "0.1.0"
+
+import importlib as _importlib
 
 import torch as _torch
 
@@ -49,3 +53,16 @@ def seeded_generator(generator, device):
         generator = _torch.Generator(device=device)
         generator.manual_seed(0)
     return generator
+
+
+_SUBPACKAGES = ("features", "match", "mvg", "ops", "parallel", "pipeline", "sfm", "utils")
+
+
+def __getattr__(name):
+    if name in _SUBPACKAGES:
+        return _importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_SUBPACKAGES))

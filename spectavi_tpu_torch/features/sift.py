@@ -40,6 +40,7 @@ SIGMA_0 = 1.6 * SIGMA_K
 NBINS_ORI = 36
 NBP = 4
 NBO = 8
+WIN_FACTOR = float(NBP) / 2
 MAX_ANGLES = 4
 TWO_PI = 2.0 * np.pi
 

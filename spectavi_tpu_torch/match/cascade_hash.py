@@ -108,8 +108,8 @@ def _rerank_topk(xb, yb, member_ids, member_valid, k):
     return torch.cat(idxs, 1), torch.cat(dists, 1)
 
 
-def nn_cascading_hash(x, y, k=2, m=None, n=2, g=2, generator=None, planes=None, chunk=512,
-                      cap_factor=6.0, with_stats=False, device="cuda"):
+def nn_cascading_hash(x, y, k=2, m=None, n=2, g=2, generator=None, chunk=512, cap_factor=6.0,
+                      with_stats=False, *, planes=None, device="cuda"):
     """Cascade-hash k-NN of de-meaned byte-range descriptors ``y`` among
     ``x`` under L1, with the auto bit rate ``m = floor(log2(max_rows /
     6))`` and the brute-force fallback when ``m < 4``.  Returns ``(idx

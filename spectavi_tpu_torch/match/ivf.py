@@ -54,11 +54,12 @@ def _init_rows(X, n_cells, generator, init, dev):
     return torch.randperm(X, generator=seeded_generator(generator, dev), device=dev)[:n_cells]
 
 
-def kmeans_cells(x, n_cells, iters=5, generator=None, init=None, device="cuda"):
+def kmeans_cells(x, generator, n_cells, iters=5, *, init=None, device="cuda"):
     """K-means over database rows ``x (X, D)``.  Returns ``(centroids
     (C, D) float32, assign (X,) int32)``.  ``init``: the ``n_cells``
     distinct rows that are the first centroids, drawn from ``generator``
-    (seed 0 when None) if not given."""
+    (a ``torch.Generator`` on ``device``, where the JAX function takes
+    its key; seed 0 when None) if not given."""
     dev = resolve_device(device)
     xt = torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
     init = _init_rows(xt.shape[0], int(n_cells), generator, init, dev)

@@ -81,11 +81,12 @@ def _perm(n, generator, perm, dev):
     return torch.randperm(n, generator=generator, device=dev)
 
 
-def kmedians(x, k, niter=8, generator=None, perm=None, device="cuda"):
+def kmedians(generator, x, k, niter=8, *, perm=None, device="cuda"):
     """Cluster ``x (N, D)`` into ``k`` L1 medians.  Returns ``(medians
     (k, D) float32, assign (N,) int32)``.  ``perm``: the permutation of
     the rows behind the initial round-robin split, drawn from
-    ``generator`` (seed 0 when None) if not given."""
+    ``generator`` (a ``torch.Generator`` on ``device``, where the JAX
+    function takes its key; seed 0 when None) if not given."""
     dev = resolve_device(device)
     xt = torch.as_tensor(np.asarray(x, dtype="float32"), device=dev)
     perm = _perm(xt.shape[0], seeded_generator(generator, dev), perm, dev)

@@ -3,9 +3,10 @@
 Same public API as ``spectavi_tpu.mvg``: ``hnormalize``,
 ``seven_point_algorithm``, ``dlt_triangulate``,
 ``dlt_reprojection_error``, ``ransac_fitter``,
-``image_pair_rectification``, backed by batched torch code.  The
-reference-API wrappers take numpy, compute in float64 on ``device``
-(the card by default; ``device="cpu"`` for the CPU) and return numpy.
+``image_pair_rectification``, ``ransac_essential_batch``, backed by
+batched torch code.  The reference-API wrappers take numpy, compute in
+float64 on ``device`` (the card by default; ``device="cpu"`` for the
+CPU) and return numpy.
 """
 
 from __future__ import annotations
@@ -25,7 +26,11 @@ from spectavi_tpu_torch.mvg.core import (  # noqa: F401
     inv3x3,
     skew_symmetric,
 )
-from spectavi_tpu_torch.mvg.ransac import DEFAULT_OPTIONS, ransac_fitter  # noqa: F401
+from spectavi_tpu_torch.mvg.ransac import (  # noqa: F401
+    DEFAULT_OPTIONS,
+    ransac_essential_batch,
+    ransac_fitter,
+)
 from spectavi_tpu_torch.mvg.rectify import (  # noqa: F401
     image_pair_rectification,
     rectify_pair,

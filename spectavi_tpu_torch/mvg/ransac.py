@@ -24,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-from spectavi_tpu_torch import resolve_device
+from spectavi_tpu_torch import resolve_device, seeded_generator
 from spectavi_tpu_torch.mvg.core import (
     cameras_from_svd,
     identity_camera,
@@ -169,17 +169,38 @@ def _lo_refine_step(x0, x1, weights, reproj_allowed, weight_allowed, point_mask,
     return E, P1[b, ic], counts[b, ic], inlier[b, ic], loose[b, ic]
 
 
-def ransac_fit_block(sample, x0, x1, point_mask, reproj_allowed, svr_allowed,
-                     live_trials, lo_iters=3):
+def _trial_table(generator, n, trials, point_mask, sample, name):
+    """The ``(..., trials, 7)`` sample table: ``sample`` as given (its
+    length must be ``trials``), or one table per leading problem of
+    ``point_mask (..., n)`` drawn from ``generator`` in turn (seed 0
+    when it is None)."""
+    trials = int(trials)
+    if sample is not None:
+        if sample.shape[-2] != trials:
+            raise ValueError(f"{name} = {trials}, but the sample table has "
+                             f"{sample.shape[-2]} trials")
+        return sample
+    generator = seeded_generator(generator, point_mask.device)
+    flat = point_mask.reshape(-1, n)
+    tables = torch.stack([sample_subsets(n, trials, m, generator) for m in flat])
+    return tables.reshape(*point_mask.shape[:-1], trials, 7)
+
+
+def ransac_fit_block(generator, x0, x1, point_mask, reproj_allowed, svr_allowed,
+                     live_trials, batch_trials=2048, lo_iters=3, *, sample=None):
     """One block of RANSAC trials + shortlist re-score + LO refinement.
 
-    ``sample (T, 7)`` int indices into the ``(N, 2)`` correspondences
-    ``x0, x1``; ``point_mask (N,)`` marks real rows; only the first
-    ``live_trials`` trials may win.  Returns ``(essential, camera,
-    count, inlier_mask)`` (tensors); ``count`` is -1 when no root
-    passed the reference gate and no LO seed produced a model.
+    ``batch_trials`` 7-point samples of the ``(N, 2)`` correspondences
+    ``x0, x1`` are drawn from ``generator`` (a ``torch.Generator``, or
+    None for one with seed 0), or handed in as ``sample (batch_trials,
+    7)`` row indices, when ``generator`` is unused; ``point_mask (N,)``
+    marks real rows; only
+    the first ``live_trials`` trials may win.  Returns ``(essential,
+    camera, count, inlier_mask)`` (tensors); ``count`` is -1 when no
+    root passed the reference gate and no LO seed produced a model.
     """
     N = x0.shape[0]
+    sample = _trial_table(generator, N, batch_trials, point_mask, sample, "batch_trials")
     T = sample.shape[0]
     F, valid = seven_point(x0[sample], x1[sample], nullspace="mgs")
     live = torch.arange(T, device=x0.device) < live_trials
@@ -228,21 +249,26 @@ def _gather_rows(x, idx):
     return torch.take_along_dim(x, idx[..., None], dim=-2)
 
 
-def ransac_essential_core(sample, x0, x1, reproj_allowed, svr_allowed, point_mask=None):
+def ransac_essential_core(generator, x0, x1, trials, reproj_allowed, svr_allowed,
+                          point_mask=None, *, sample=None):
     """One batch of RANSAC trials; the batch winner.
 
-    ``sample (..., T, 7)`` row indices into the euclidean
-    correspondences ``x0, x1 (..., N, 2)``; ``point_mask (..., N)``
-    marks real rows.  Leading dimensions are independent problems (the
-    pair step's pairs).  The 7-point roots are ranked by their Sampson
-    counts under the reference gate, the top 8 (stable: ties to the
-    lower index, as ``lax.top_k``) are re-scored under the exact
-    criterion, and the best wins.  Returns a dict of ``essential (...,
+    ``trials`` 7-point samples of the euclidean correspondences ``x0,
+    x1 (..., N, 2)`` are drawn from ``generator`` (a
+    ``torch.Generator``, or None for one with seed 0; one table per
+    problem in turn), or handed in as ``sample (..., trials, 7)`` row
+    indices, when ``generator`` is unused; ``point_mask (..., N)`` marks
+    real rows.  Leading dimensions
+    are independent problems (the pair step's pairs).  The 7-point roots
+    are ranked by their Sampson counts under the reference gate, the top
+    8 (stable: ties to the lower index, as ``lax.top_k``) are re-scored
+    under the exact criterion, and the best wins.  Returns a dict of ``essential (...,
     3, 3)``, ``camera (..., 3, 4)``, ``count (...)`` (-1 when every
     hypothesis failed the gate) and ``inlier_mask (..., N)``."""
     N = x0.shape[-2]
     if point_mask is None:
         point_mask = torch.ones(x0.shape[:-1], dtype=torch.bool, device=x0.device)
+    sample = _trial_table(generator, N, trials, point_mask, sample, "trials")
     lead, T = sample.shape[:-2], sample.shape[-2]
     flat_s = sample.reshape(*lead, T * 7)
     xs0 = _gather_rows(x0, flat_s).reshape(*lead, T, 7, 2)
@@ -267,6 +293,10 @@ def ransac_essential_core(sample, x0, x1, reproj_allowed, svr_allowed, point_mas
         "inlier_mask": torch.take_along_dim(msks, bi[..., None], dim=-2)[..., 0, :]
         & best_ok[..., None],
     }
+
+
+# the JAX package's name for the compiled core; the port has no compile step
+ransac_essential_batch = ransac_essential_core
 
 
 def ransac_fitter(x0, x1, options=None, generator=None, batch_trials=8192,
@@ -298,9 +328,7 @@ def ransac_fitter(x0, x1, options=None, generator=None, batch_trials=8192,
         x1 = x1[:, :2] / x1[:, 2:]
     on_cpu64 = dev.type == "cpu" and x0.dtype == np.float64
     dtype = torch.float64 if on_cpu64 else torch.float32
-    if generator is None:
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(0)
+    generator = seeded_generator(generator, dev)
 
     N = x0.shape[0]
     required = opts["required_percent_inliers"]
@@ -327,9 +355,8 @@ def ransac_fitter(x0, x1, options=None, generator=None, batch_trials=8192,
     progressbar = bool(opts.get("progressbar"))
     while tries < max_tries:
         live = min(batch_trials, max_tries - tries)
-        sample = sample_subsets(Np, batch_trials, pmask, generator)
         out = ransac_fit_block(
-            sample, x0t, x1t, pmask, reproj, svr, live, lo_iters=lo_iters
+            generator, x0t, x1t, pmask, reproj, svr, live, batch_trials, lo_iters
         )
         count = int(out[2])
         if progressbar:

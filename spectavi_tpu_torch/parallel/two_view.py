@@ -21,9 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from spectavi_tpu_torch import seeded_generator
 from spectavi_tpu_torch.match.bruteforce import l1_topk2_xla, topk_lowest
-from spectavi_tpu_torch.mvg.ransac import ransac_essential_core, sample_subsets
+from spectavi_tpu_torch.mvg.ransac import ransac_essential_core
 from spectavi_tpu_torch.ops.l2nn import l2_topk2
 from spectavi_tpu_torch.parallel.mesh import BLOCKS, PAIRS, all_gather, local_shard
 
@@ -48,6 +47,8 @@ def _merge_block_topk(idx, dist, group, block_rank, block_rows):
 
 
 def _sharded_topk2(mesh, x_block, y, kernel):
+    """The merged top-2 of ``y`` given this rank's block ``x_block`` of
+    the database: the kernel on the block, then the all-gather merge."""
     if x_block.shape[0] < 2:
         raise ValueError(f"a block needs at least 2 database rows, got {x_block.shape[0]}")
     idx, dist = kernel(x_block, y)
@@ -55,25 +56,37 @@ def _sharded_topk2(mesh, x_block, y, kernel):
                              x_block.shape[0])
 
 
-def sharded_l1_topk2(mesh, x_block, y):
+def _device_block(mesh, x):
+    """This rank's block of the whole database ``x``, and only that
+    block, on the mesh's device."""
+    return torch.as_tensor(local_shard(mesh, x, BLOCKS)).to(mesh.device)
+
+
+def sharded_l1_topk2(mesh, x, y):
     """Exact top-2 L1 matching with the database split over ``blocks``.
 
-    ``x_block``: this rank's block of the ``(X, D)`` integer database
-    (:func:`spectavi_tpu_torch.parallel.mesh.local_shard` cuts it; X
-    divisible by the ``blocks`` size, 2 rows a block at least); ``y
-    (Y, D)``: the queries, the same on every rank of the group.
-    Returns ``(idx (Y, 2) int32 global rows, dist (Y, 2) int32)`` on
-    every rank of the group."""
-    return _sharded_topk2(mesh, x_block, y,
+    ``x (X, D)``: the whole integer database, the same on every rank of
+    the ``blocks`` group (X divisible by the ``blocks`` size, 2 rows a
+    block at least), as JAX's call takes it.  JAX's ``x`` is one global
+    array sharded over the devices; here each rank's process holds the
+    whole ``x``, so pass it on the host (a CPU tensor or a numpy
+    array): each rank cuts its block
+    (:func:`spectavi_tpu_torch.parallel.mesh.local_shard`) and moves
+    only that block to ``mesh.device``, so no card holds more than its
+    share.  ``y (Y, D)``: the queries, the same on every rank of the
+    group.  Returns ``(idx (Y, 2) int32 rows of x, dist (Y, 2) int32)``
+    on every rank of the group, on ``mesh.device``."""
+    return _sharded_topk2(mesh, _device_block(mesh, x), torch.as_tensor(y).to(mesh.device),
                           lambda a, b: l1_topk2_xla(a, b, device=mesh.device))
 
 
-def sharded_l2_topk2(mesh, x_block, y):
+def sharded_l2_topk2(mesh, x, y):
     """Exact top-2 squared-L2 matching of byte descriptors with the
     database split over ``blocks``: the CUDA kernel on each block of
     CUDA tensors, its plain version on the CPU.  Same contract as
     :func:`sharded_l1_topk2`."""
-    return _sharded_topk2(mesh, x_block, y, l2_topk2)
+    return _sharded_topk2(mesh, _device_block(mesh, x), torch.as_tensor(y).to(mesh.device),
+                          l2_topk2)
 
 
 def gather_pairs(mesh, outs):
@@ -83,24 +96,28 @@ def gather_pairs(mesh, outs):
     return tuple(all_gather(t, mesh.groups[PAIRS]).flatten(0, 1) for t in outs)
 
 
-def make_two_view_step(trials=512, reproj_allowed=1e-3, svr_allowed=3e-2, min_ratio=1.75,
-                       compact_to=4096, mesh=None):
+def make_two_view_step(mesh=None, trials=512, reproj_allowed=1e-3, svr_allowed=3e-2,
+                       min_ratio=1.75, masked=False, compact_to=4096):
     """Build the two-view step for a batch of pairs.
 
     The step takes ``desc0 (B, X, D)`` uint8 descriptors of image 0
     (the database), ``desc1 (B, Y, D)`` of image 1 (the queries), their
     calibrated euclidean keypoints ``pts0 (B, X, 2)``, ``pts1 (B, Y,
-    2)``, the valid database and query row counts ``nx, ny (B,)``, and
-    either a ``torch.Generator`` (``generator``) or the ``(B, trials,
+    2)``, then a ``torch.Generator`` (``generator``, where the JAX step
+    takes its keys; seed 0 when None) or, by keyword, the ``(B, trials,
     7)`` sample table (``sample``, row indices into the compacted
-    survivors).  Matches into padding and padded queries are dropped
-    from the ratio mask.  It returns per pair ``(essential (B, 3, 3),
-    camera (B, 3, 4), count (B,), inlier_mask (B, Y), nearest database
-    row (B, Y), ratio mask (B, Y))``.  This is the JAX step's
-    ``masked=True`` variant, the one ``run_sfm`` uses.  Pad the database
-    by replicating a real row: a query whose neighbour is that row then
-    sees ``d2 == d1`` (ties go to the lower index) and fails the ratio
-    test.
+    survivors).  It returns per pair ``(essential (B, 3, 3), camera (B,
+    3, 4), count (B,), inlier_mask (B, Y))``.
+
+    ``masked=True`` builds the ragged-batch variant that ``run_sfm``'s
+    batched backend uses: the step also takes ``nx, ny (B,)``, the valid
+    database and query row counts, drops matches into padding and padded
+    queries from the ratio mask, and returns two more outputs, the
+    nearest database row ``(B, Y)`` and the ratio mask ``(B, Y)``.  Pad
+    the database by replicating a real row: a query whose neighbour is
+    that row then sees ``d2 == d1`` (ties go to the lower index) and
+    fails the ratio test.  ``masked=False`` refuses ``nx, ny``: every
+    row is real.
 
     ``compact_to``: the ratio survivors are compacted into a
     ``min(compact_to, Y)``-row bucket by a stable descending sort of the
@@ -109,25 +126,32 @@ def make_two_view_step(trials=512, reproj_allowed=1e-3, svr_allowed=3e-2, min_ra
     can appear in the inlier mask.
 
     ``mesh``: a :class:`spectavi_tpu_torch.parallel.mesh.Mesh` makes
-    this the ``(pairs, blocks)`` step.  Every rank passes the whole
-    batch (``B`` divisible by the ``pairs`` size, ``X`` by the
-    ``blocks`` size); a rank takes its ``B / n_pairs`` pairs, matches
-    its block of their database rows (:func:`sharded_l2_topk2`), and
-    runs the ratio test, compaction and RANSAC of its pairs, as every
-    rank of its ``blocks`` group does on the same inputs.  A ``sample``
-    table is cut the same way; with a ``generator`` instead, the ranks
-    of a ``blocks`` group agree when their generators carry the same
-    seed, and each draws its own pairs' tables only, so the draws
-    differ from one card's.  The step returns the rank's own pairs;
-    :func:`gather_pairs` gathers the batch."""
+    this the ``(pairs, blocks)`` step; None runs it on one device with
+    the pairs as a batch dimension.  Every rank passes the whole batch
+    (``B`` divisible by the ``pairs`` size, ``X`` by the ``blocks``
+    size); a rank takes its ``B / n_pairs`` pairs, matches its block of
+    their database rows, and runs the ratio test, compaction and RANSAC
+    of its pairs, as every rank of its ``blocks`` group does on the same
+    inputs.  A ``sample`` table is cut the same way; with a
+    ``generator`` instead, the ranks of a ``blocks`` group agree when
+    their generators carry the same seed, and each draws its own pairs'
+    tables only, so the draws differ from one card's.  The step returns
+    the rank's own pairs; :func:`gather_pairs` gathers the batch."""
 
     def match(d0, d1):
         if mesh is None:
             return l2_topk2(d0, d1)
-        return sharded_l2_topk2(mesh, d0, d1)
+        return _sharded_topk2(mesh, d0, d1, l2_topk2)
 
-    def step(desc0, desc1, pts0, pts1, nx, ny, sample=None, generator=None):
+    def step(desc0, desc1, pts0, pts1, generator=None, nx=None, ny=None, *, sample=None):
+        if masked and (nx is None or ny is None):
+            raise ValueError("a masked step takes the row counts nx and ny")
+        if not masked and (nx is not None or ny is not None):
+            raise ValueError("an unmasked step takes no row counts; build it with masked=True")
         dev = pts0.device
+        if not masked:
+            nx, ny = (torch.full((desc0.shape[0],), desc0.shape[1]),
+                      torch.full((desc1.shape[0],), desc1.shape[1]))
         nx_t = torch.as_tensor(nx, device=dev)
         ny_t = torch.as_tensor(ny, device=dev)
         if mesh is not None:
@@ -153,17 +177,13 @@ def make_two_view_step(trials=512, reproj_allowed=1e-3, svr_allowed=3e-2, min_ra
         src = torch.gather(idx[..., 0], 1, topq)
         x0 = torch.take_along_dim(pts0, src[..., None], dim=1)
         x1 = torch.take_along_dim(pts1, topq[..., None], dim=1)
-        if sample is None:
-            generator = seeded_generator(generator, dev)
-            sample = torch.stack([sample_subsets(C, trials, cmask[b], generator)
-                                  for b in range(B)])
-        else:
+        if sample is not None:
             sample = torch.as_tensor(sample, dtype=torch.long, device=dev)
-        out = ransac_essential_core(sample, x0, x1, reproj_allowed, svr_allowed,
-                                    point_mask=cmask)
+        out = ransac_essential_core(generator, x0, x1, trials,
+                                    reproj_allowed, svr_allowed, cmask, sample=sample)
         inlier_full = torch.zeros((B, Y), dtype=torch.bool, device=dev)
         inlier_full.scatter_(1, topq, out["inlier_mask"])
-        return (out["essential"], out["camera"], out["count"], inlier_full, idx[..., 0],
-                ratio_ok)
+        outs = (out["essential"], out["camera"], out["count"], inlier_full)
+        return outs + (idx[..., 0], ratio_ok) if masked else outs
 
     return step

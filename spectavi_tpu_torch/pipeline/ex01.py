@@ -6,13 +6,14 @@ Usage:
         [--ransac_quality {low,medium,high,ultra,uber}]
         [--matching_method {auto,bruteforce,cascading-hash,l2-mxu}]
         [--min_ratio R] [--rsf F] [--cache] [--plots] [--seed N]
-        [--device cuda|cpu] [--trace DIR]
+        [--device cuda|cpu] [--trace DIR] [--view]
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 
 from spectavi_tpu_torch.pipeline.two_view import run_two_view
 
@@ -47,6 +48,10 @@ def main(argv=None):
                         help="radial lens model during --ba")
     parser.add_argument("--plots", action="store_true",
                         help="also save keypoint/match visualizations (needs matplotlib)")
+    parser.add_argument("--view", action="store_true",
+                        help="open the sparse cloud interactively with "
+                        "open3d (reference ex01's final viz step; falls "
+                        "back to a message when open3d is unavailable)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--trace", default=None, metavar="DIR",
                         help="write a torch.profiler trace of the run to DIR "
@@ -85,6 +90,10 @@ def main(argv=None):
             plots=args.plots,
             device=args.device,
         )
+    if args.view:
+        from spectavi_tpu_torch.pipeline.viz import try_open3d_viz
+
+        try_open3d_viz(os.path.join(args.outdir, "sparse_inliers.ply"))
 
 
 if __name__ == "__main__":

@@ -139,10 +139,11 @@ def _match_pairs_batched(descs, pts_cal, pair_list, generator, ropts, min_ratio,
         reproj_allowed=ropts["reprojection_error_allowed"],
         svr_allowed=ropts["singular_value_ratio_allowed"],
         min_ratio=min_ratio,
+        masked=True,
         compact_to=compact_to,
     )
     out = step(d0, d1, torch.as_tensor(p0, device=dev), torch.as_tensor(p1, device=dev),
-               nx, ny, generator=generator)
+               generator, nx, ny)
     E, P1, count, inl_mask, midx0, ratio_ok = (t.cpu().numpy() for t in out)
 
     results = []

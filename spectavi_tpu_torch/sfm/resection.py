@@ -194,14 +194,15 @@ def _bucket(n):
     return max(256, 1 << int(np.ceil(np.log2(n))))
 
 
-def pnp_ransac(X, uv, generator=None, sample=None, trials=512, sample_size=6,
-               reproj_thresh=1e-3, refine_iters=10, device="cuda"):
+def pnp_ransac(X, uv, generator=None, trials=512, sample_size=6, reproj_thresh=1e-3,
+               refine_iters=10, *, sample=None, device="cuda"):
     """Robust camera resection from 2D-3D correspondences.
 
     ``X (N, 3)`` world points, ``uv (N, 2)`` calibrated observations,
-    ``N >= 6``.  ``sample (trials, sample_size)`` row indices replace the
-    generator's draw.  Returns ``dict(rvec, tvec, n_inliers,
-    inlier_mask, success)``."""
+    ``N >= 6``.  ``generator`` (a ``torch.Generator`` on ``device``,
+    seed 0 when None) draws the ``trials`` samples; ``sample (trials,
+    sample_size)`` row indices replace the draw.  Returns ``dict(rvec,
+    tvec, n_inliers, inlier_mask, success)``."""
     N = np.asarray(X).shape[0]
     if N < 6:
         raise ValueError(f"pnp_ransac needs >= 6 correspondences, got {N}")
@@ -212,8 +213,8 @@ def pnp_ransac(X, uv, generator=None, sample=None, trials=512, sample_size=6,
     )[0]
 
 
-def pnp_ransac_batch(problems, generator=None, sample=None, trials=512, sample_size=6,
-                     reproj_thresh=1e-3, refine_iters=10, max_rows=32768, device="cuda"):
+def pnp_ransac_batch(problems, generator=None, trials=512, sample_size=6, reproj_thresh=1e-3,
+                     refine_iters=10, max_rows=32768, *, sample=None, device="cuda"):
     """:func:`pnp_ransac` over a list of ``(X, uv)`` problems in one
     batched program.
 

@@ -93,9 +93,9 @@ MATCHER_CALLS = {
     "nn_bruteforcel1k2": lambda m: m.nn_bruteforcel1k2(_B, _B),
     "nn_cascading_hash": lambda m: m.nn_cascading_hash(_F, _F, m=4),
     "nn_cascading_hash_fallback": lambda m: m.nn_cascading_hash(_F, _F),
-    "kmedians": lambda m: m.kmedians(_F, 3),
+    "kmedians": lambda m: m.kmedians(None, _F, 3),
     "nn_kmedians": lambda m: m.nn_kmedians(_F, _F, 2),
-    "kmeans_cells": lambda m: m.ivf.kmeans_cells(_F, 4),
+    "kmeans_cells": lambda m: m.ivf.kmeans_cells(_F, None, 4),
     "probe_cells": lambda m: m.ivf.probe_cells(_F, _F[:4], 2),
     "nn_ivf": lambda m: m.nn_ivf(_F, _F),
     "ann": lambda m: m.ann(_F, _F),

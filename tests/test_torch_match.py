@@ -281,7 +281,7 @@ def test_kmedians_vs_jax_on_its_permutation(rng):
     x = rng.standard_normal((257, 19)).astype("float32")  # odd shapes
     key = jax.random.PRNGKey(3)
     perm = np.asarray(jax.random.permutation(key, 257))
-    med, assign = match.kmedians(x, 7, niter=4, perm=perm, device="cpu")
+    med, assign = match.kmedians(None, x, 7, niter=4, perm=perm, device="cpu")
     jmed, jassign = jax_kmedians(key, jnp.asarray(x), 7, niter=4)
     assert med.dtype == np.float32 and assign.dtype == np.int32
     np.testing.assert_array_equal(assign, np.asarray(jassign))
@@ -298,17 +298,17 @@ def test_kmedians_empty_cluster_and_own_draw(rng):
     x = np.repeat(rng.standard_normal((3, 5)).astype("float32"), 4, axis=0)
     key = jax.random.PRNGKey(1)
     perm = np.asarray(jax.random.permutation(key, 12))
-    med, assign = match.kmedians(x, 6, niter=3, perm=perm, device="cpu")
+    med, assign = match.kmedians(None, x, 6, niter=3, perm=perm, device="cpu")
     jmed, jassign = jax_kmedians(key, jnp.asarray(x), 6, niter=3)
     np.testing.assert_array_equal(assign, np.asarray(jassign))
     np.testing.assert_allclose(med, np.asarray(jmed), rtol=0, atol=1e-6)
     assert len(np.unique(assign)) < 6
     gen = torch.Generator()
     gen.manual_seed(5)
-    med2, assign2 = match.kmedians(x, 3, generator=gen, device="cpu")
+    med2, assign2 = match.kmedians(gen, x, 3, device="cpu")
     assert med2.shape == (3, 5) and set(assign2) <= {0, 1, 2}
     with pytest.raises(ValueError, match="permutation"):
-        match.kmedians(x, 3, perm=np.arange(5), device="cpu")
+        match.kmedians(None, x, 3, perm=np.arange(5), device="cpu")
 
 
 def test_nn_kmedians_vs_jax_on_its_permutations(rng):
@@ -362,8 +362,8 @@ def _jax_init(X, n_cells, seed=0):
 def test_kmeans_cells_and_probes_vs_jax(rng):
     x, y = _ivf_inputs(rng, 1500, 200)
     n_cells = 40
-    cent, assign = match.ivf.kmeans_cells(x, n_cells, iters=5, init=_jax_init(1500, n_cells),
-                                          device="cpu")
+    cent, assign = match.ivf.kmeans_cells(x, None, n_cells, iters=5,
+                                          init=_jax_init(1500, n_cells), device="cpu")
     jcent, jassign = jax_kmeans_cells(jnp.asarray(x), jax.random.PRNGKey(0), n_cells, 5)
     assert cent.dtype == np.float32 and assign.dtype == np.int32
     # a row at equal float distance from two centroids may change cell
@@ -428,3 +428,36 @@ def test_match_exports_what_the_jax_package_exports():
              "nn_l2k2", "nn_cascading_hash", "nn_ivf", "kmedians", "nn_kmedians"]
     for name in names:
         assert callable(getattr(jmatch, name)) and callable(getattr(match, name)), name
+
+
+# --- the JAX package's positional call forms -------------------------------------
+
+
+def _seeded(seed):
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    return gen
+
+
+def test_jax_positional_forms_equal_keyword_calls(rng):
+    # JAX: kmedians(key, x, k, niter), kmeans_cells(x, key, n_cells, iters),
+    # nn_cascading_hash(x, y, k, m, n, g, key, chunk); a generator takes the
+    # key's place and the same seed gives the keyword call's answer
+    x = rng.standard_normal((120, 12)).astype("float32")
+    pos = match.kmedians(_seeded(4), x, 5, 3, device="cpu")
+    kw = match.kmedians(generator=_seeded(4), x=x, k=5, niter=3, device="cpu")
+    for a, b in zip(pos, kw):
+        np.testing.assert_array_equal(a, b)
+    pos = ivf.kmeans_cells(x, _seeded(5), 9, 4, device="cpu")
+    kw = ivf.kmeans_cells(x=x, generator=_seeded(5), n_cells=9, iters=4, device="cpu")
+    for a, b in zip(pos, kw):
+        np.testing.assert_array_equal(a, b)
+    hx, hy = _clustered(rng, 300, 200, 32)
+    pos = match.nn_cascading_hash(hx, hy, 2, 6, 4, 3, _seeded(6), 64, device="cpu")
+    kw = match.nn_cascading_hash(hx, hy, k=2, m=6, n=4, g=3, generator=_seeded(6), chunk=64,
+                                 device="cpu")
+    for a, b in zip(pos, kw):
+        np.testing.assert_array_equal(a, b)
+    # a generator of another seed draws other clusters
+    other = match.kmedians(_seeded(9), x, 5, 3, device="cpu")
+    assert not np.array_equal(other[1], match.kmedians(_seeded(4), x, 5, 3, device="cpu")[1])

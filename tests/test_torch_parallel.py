@@ -9,9 +9,11 @@ writes each rank's outputs; the tests compare them with JAX's
 ``host_cpu_mesh(4, ...)`` results and with one process's answers:
 
 * ``sharded_l1_topk2`` / ``sharded_l2_topk2`` on meshes ``(1, 4)`` and
-  ``(2, 2)``, bit for bit, on databases full of ties (duplicated rows,
-  equal rows in different blocks);
-* the ``(2, 2)`` two-view step on 4 padded pairs with a compaction cap
+  ``(2, 2)``, called as JAX calls them (the whole database on every
+  rank, as a tensor and as a host numpy array), bit for bit, on databases full of ties (duplicated rows, equal
+  rows in different blocks); a database that does not split over the
+  blocks raises;
+* the ``(2, 2)`` masked two-view step on 4 padded pairs with a compaction cap
   that engages, handed JAX's sample tables: nearest rows, ratio masks,
   counts and inlier masks identical, E and camera to 1e-9.  On
   ``(2, 2)`` a rank's global rank is not its ``blocks`` coordinate, so
@@ -32,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_sfm import _pair_inputs
+from test_torch_sfm import _pair_inputs, jax_step_tables
 
 torch.set_num_threads(2)
 
@@ -59,7 +61,7 @@ out = {}
 
 WORKER = r"""
 from spectavi_tpu_torch.parallel import (BLOCKS, PAIRS, gather_pairs, host_cpu_mesh,
-                                         local_shard, make_two_view_step, sharded_l1_topk2,
+                                         make_two_view_step, sharded_l1_topk2,
                                          sharded_l2_topk2)
 
 T = torch.as_tensor
@@ -68,20 +70,31 @@ for nb in (4, 2):
     out[f"mesh_{nb}"] = np.array([mesh.shape[PAIRS], mesh.shape[BLOCKS], mesh.coords[PAIRS],
                                   mesh.coords[BLOCKS]])
     for name, fn in (("l1", sharded_l1_topk2), ("l2", sharded_l2_topk2)):
-        idx, dist = fn(mesh, local_shard(mesh, T(inp[name + "_x"]), BLOCKS), T(inp[name + "_y"]))
+        # JAX's call: the whole database on every rank
+        x, y = T(inp[name + "_x"]), T(inp[name + "_y"])
+        idx, dist = fn(mesh, x, y)
         out[f"{name}_{nb}_idx"], out[f"{name}_{nb}_dist"] = idx.numpy(), dist.numpy()
+        # the whole database as a host numpy array: only the block is moved
+        idx, dist = fn(mesh, inp[name + "_x"], inp[name + "_y"])
+        out[f"{name}_{nb}_host_idx"], out[f"{name}_{nb}_host_dist"] = idx.numpy(), dist.numpy()
+        try:  # a database that does not split over the blocks
+            fn(mesh, x[: x.shape[0] - 1], y)
+            out[f"{name}_{nb}_ragged"] = np.array("none")
+        except ValueError as e:
+            out[f"{name}_{nb}_ragged"] = np.array(str(e))
 
 mesh = host_cpu_mesh(4, n_blocks=2)
-step = make_two_view_step(mesh=mesh, **%(kw)r)
-args = [T(inp[k]) for k in ("d0", "d1", "p0", "p1")] + [inp["nx"], inp["ny"]]
-local = step(*args, sample=inp["tables"])
+step = make_two_view_step(mesh, masked=True, **%(kw)r)
+args = [T(inp[k]) for k in ("d0", "d1", "p0", "p1")]
+counts = (inp["nx"], inp["ny"])
+local = step(*args, None, *counts, sample=inp["tables"])
 out["local_count"] = local[2].numpy()
 for k, v in zip(("E", "P1", "count", "inl", "midx0", "ratio_ok"), gather_pairs(mesh, local)):
     out["step_" + k] = v.numpy()
 # the step's own draws: the ranks of a blocks group agree on the same seed
 gen = torch.Generator()
 gen.manual_seed(7 + mesh.coords[PAIRS])
-own = step(*args, generator=gen)
+own = step(*args, gen, *counts)
 out["own_count"], out["own_inl"] = own[2].numpy(), own[3].numpy()
 try:
     host_cpu_mesh(8)
@@ -145,24 +158,6 @@ def _tie_tables(rng):
             "l2_x": x2.astype(np.uint8), "l2_y": y2.astype(np.uint8)}
 
 
-def _jax_tables(d0, d1, nx, ny, keys):
-    """JAX's per-pair sample tables, drawn over its own compacted
-    survivors (as ``tests/test_torch_sfm.py`` builds them)."""
-    from spectavi_tpu.mvg import ransac as jran
-    from spectavi_tpu.ops.l2nn import l2_topk_mxu
-
-    C, Y = STEP_KW["compact_to"], d1.shape[1]
-    tables = []
-    for b in range(d0.shape[0]):
-        idx, dist = l2_topk_mxu(J(d0[b]), J(d1[b]), k=2)
-        dd1 = jnp.maximum(dist[:, 0].astype(jnp.float64), 1e-12)
-        dd2 = dist[:, 1].astype(jnp.float64)
-        ok = (dd2 >= STEP_KW["min_ratio"]**2 * dd1) & (idx[:, 0] < nx[b]) & (jnp.arange(Y) < ny[b])
-        _, topq = jax.lax.top_k(jnp.where(ok, dd2 / dd1, -1.0), C)
-        tables.append(np.asarray(jran._sample_subsets(keys[b], C, STEP_KW["trials"], ok[topq])))
-    return np.stack(tables)
-
-
 @pytest.fixture(scope="module")
 def job(tmp_path_factory):
     rng = np.random.default_rng(0xDEADBEEF)
@@ -170,7 +165,8 @@ def job(tmp_path_factory):
     d0, d1, p0, p1, nx, ny = _pair_inputs(rng, B=4)
     keys = jax.random.split(jax.random.PRNGKey(3), 4)
     inputs.update(d0=d0, d1=d1, p0=p0, p1=p1, nx=nx, ny=ny,
-                  tables=_jax_tables(d0, d1, nx, ny, keys))
+                  tables=jax_step_tables(d0, d1, keys, STEP_KW["trials"], STEP_KW["compact_to"],
+                                         STEP_KW["min_ratio"], nx, ny))
     outs = run_ranks(str(tmp_path_factory.mktemp("parallel")), WORKER, 4, inputs,
                      {"kw": STEP_KW})
     return inputs, keys, outs
@@ -196,6 +192,10 @@ def test_sharded_topk2_vs_jax(job, metric, n_blocks):
     for out in outs:  # every rank holds the global answer
         np.testing.assert_array_equal(out[f"{metric}_{n_blocks}_idx"], ri)
         np.testing.assert_array_equal(out[f"{metric}_{n_blocks}_dist"], rd)
+        assert out[f"{metric}_{n_blocks}_idx"].max() < x.shape[0]  # rows of the whole table
+        np.testing.assert_array_equal(out[f"{metric}_{n_blocks}_host_idx"], ri)
+        np.testing.assert_array_equal(out[f"{metric}_{n_blocks}_host_dist"], rd)
+        assert "does not split" in str(out[f"{metric}_{n_blocks}_ragged"])
 
 
 def test_mesh_coordinates(job):
@@ -249,6 +249,31 @@ def test_make_mesh_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_mesh(device_type="cuda")
+
+
+@pytest.mark.parametrize("metric", ["l1", "l2"])
+def test_sharded_topk2_moves_only_the_block(monkeypatch, metric):
+    from spectavi_tpu_torch.parallel import two_view
+    from spectavi_tpu_torch.parallel.mesh import BLOCKS, PAIRS, Mesh
+
+    mesh = Mesh(shape={PAIRS: 1, BLOCKS: 4}, coords={PAIRS: 0, BLOCKS: 2}, groups={},
+                device=torch.device("cpu"))
+    seen = {}
+
+    def merge(mesh_, x_block, y, kernel):
+        seen["block"], seen["y"] = x_block, y
+        return "merged"
+
+    monkeypatch.setattr(two_view, "_sharded_topk2", merge)
+    x = np.arange(16 * 8, dtype=np.uint8).reshape(16, 8)  # the whole table, on the host
+    fn = two_view.sharded_l1_topk2 if metric == "l1" else two_view.sharded_l2_topk2
+    assert fn(mesh, x, x[:3]) == "merged"
+    # the kernel sees a tensor on the mesh's device holding this rank's 4 rows only
+    assert isinstance(seen["block"], torch.Tensor) and seen["block"].device == mesh.device
+    np.testing.assert_array_equal(seen["block"].numpy(), x[8:12])
+    assert isinstance(seen["y"], torch.Tensor)
+    with pytest.raises(ValueError, match="does not split"):
+        fn(mesh, x[:15], x[:3])
 
 
 def test_local_shard():

@@ -1,7 +1,9 @@
 """Port parity: RANSAC of ``spectavi_tpu_torch.mvg`` against
 ``spectavi_tpu.mvg`` in float64 on the same numpy inputs.
 
-The block, handed the JAX package's own ``(trials, 7)`` sample table,
+The block and ``ransac_essential_batch``, handed the JAX package's own
+``(trials, 7)`` sample table and called in JAX's argument order (a
+``torch.Generator``, or None beside a table, where JAX takes its key),
 must pick the same winner: the same count, the same inlier mask, and E
 and the camera equal to 1e-9.  The fitter draws its own samples with a
 ``torch.Generator`` (torch cannot reproduce JAX's threefry stream), so
@@ -59,7 +61,8 @@ def test_ransac_block_same_winner_as_jax(rng, scene, trials, seed):
         batch_trials=trials, lo_iters=3,
     )
     Et, camt, ct, mt = tran.ransac_fit_block(
-        T(sample), T(x0p), T(x1p), T(pm), 3.35e-4, 1e-3, trials
+        None, T(x0p), T(x1p), T(pm), 3.35e-4, 1e-3, trials, batch_trials=trials,
+        sample=T(sample),
     )
     assert int(ct) == int(cj) > 0
     np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
@@ -94,3 +97,56 @@ def test_sample_subsets_distinct_and_masked():
     assert s.shape == (500, 7)
     assert int(s.max()) < 40
     assert all(len(set(row)) == 7 for row in s.tolist())
+
+
+def test_ransac_essential_batch_jax_form_vs_jax(rng):
+    # JAX's call ransac_essential_batch(key, x0, x1, trials, reproj, svr, mask),
+    # the port's with None for the key and JAX's table by keyword
+    trials, reproj, svr = 256, 3.35e-4, 1e-3
+    x0, x1, pm = _padded(*_scene(rng, n=200))
+    key = jax.random.PRNGKey(5)
+    table = np.asarray(jran._sample_subsets(key, pm.shape[0], trials, J(pm)))
+    ref = jran.ransac_essential_batch(key, J(x0), J(x1), trials, reproj, svr, J(pm))
+    out = tmvg.ransac_essential_batch(None, T(x0), T(x1), trials, reproj, svr, T(pm),
+                                      sample=T(table))
+    assert int(out["count"]) == int(ref["count"]) > 0
+    np.testing.assert_array_equal(out["inlier_mask"].numpy(), np.asarray(ref["inlier_mask"]))
+    np.testing.assert_allclose(out["essential"].numpy(), np.asarray(ref["essential"]),
+                               atol=1e-9)
+    np.testing.assert_allclose(out["camera"].numpy(), np.asarray(ref["camera"]), atol=1e-9)
+    # the port's own draw: a generator in the key's place, the table it
+    # would hand over drawn from the same seed gives the same winner
+    gen = torch.Generator()
+    gen.manual_seed(2)
+    own = tmvg.ransac_essential_batch(gen, T(x0), T(x1), trials, reproj, svr, T(pm))
+    gen.manual_seed(2)
+    drawn = tran.sample_subsets(pm.shape[0], trials, T(pm), gen)
+    again = tmvg.ransac_essential_batch(None, T(x0), T(x1), trials, reproj, svr, T(pm),
+                                        sample=drawn)
+    for k in own:
+        np.testing.assert_array_equal(own[k].numpy(), again[k].numpy())
+    assert int(own["count"]) > 0.5 * 200
+    with pytest.raises(ValueError, match="trials = 128"):
+        tmvg.ransac_essential_batch(None, T(x0), T(x1), 128, reproj, svr, T(pm),
+                                    sample=T(table))
+
+
+def test_none_generator_draws_seed_zero(rng):
+    # None in the key's place and no table: the seeded default, the same
+    # bytes on every call, as a generator seeded with 0 gives
+    trials, reproj, svr = 128, 3.35e-4, 1e-3
+    x0, x1, pm = (T(a) for a in _padded(*_scene(rng, n=120)))
+    zero = torch.Generator()
+    zero.manual_seed(0)
+    calls = {
+        "batch": lambda g: tmvg.ransac_essential_batch(g, x0, x1, trials, reproj, svr, pm),
+        "block": lambda g: dict(zip("ECni", tran.ransac_fit_block(
+            g, x0, x1, pm, reproj, svr, trials, trials))),
+    }
+    for name, call in calls.items():
+        a, b = call(None), call(None)
+        zero.manual_seed(0)
+        c = call(zero)
+        for k in a:
+            assert a[k].numpy().tobytes() == b[k].numpy().tobytes(), (name, k)
+            assert a[k].numpy().tobytes() == c[k].numpy().tobytes(), (name, k)

@@ -8,6 +8,8 @@ pick the same hypothesis: the same inlier counts, identical masks and
 poses to 1e-8.  ``incremental_poses`` draws from its own generator; on a
 clean chain every view registers and the cameras land within 1e-6 of
 JAX's, since the winners' masked polish converges to one optimum.
+Called in JAX's argument order (a generator where JAX takes its key,
+then ``trials``), ``pnp_ransac`` gives the keyword call's answer.
 """
 
 import importlib
@@ -85,6 +87,24 @@ def test_pnp_ransac_batch_chunked_given_jax_tables(rng):
     assert len(rt) == 3
     for a, b in zip(rt, rj):
         _same(a, b)
+
+
+def test_pnp_ransac_jax_positional_form(rng):
+    # JAX's pnp_ransac(X, uv, key, trials): a generator in the key's place
+    # and the trial count fourth, as the keyword call takes them
+    X, uv = _problem(rng, 50, outliers=0.0)
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    pos = tres.pnp_ransac(X, uv, gen, 64, device="cpu")
+    gen.manual_seed(3)
+    kw = tres.pnp_ransac(X, uv, generator=gen, trials=64, device="cpu")
+    assert pos["success"] and pos["n_inliers"] == 50
+    for k in pos:
+        np.testing.assert_array_equal(pos[k], kw[k])
+    gen.manual_seed(3)
+    batch = tres.pnp_ransac_batch([(X, uv)], gen, 64, device="cpu")[0]
+    for k in pos:
+        np.testing.assert_array_equal(batch[k], pos[k])
 
 
 def test_incremental_poses_clean_chain(rng):

@@ -9,7 +9,10 @@ batched two-view step and ``run_sfm`` of ``spectavi_tpu_torch`` against
   step on a 1x1 CPU mesh, handed JAX's per-pair tables (drawn over JAX's own
   compacted survivors): identical nearest rows, ratio masks and inlier
   masks, cameras to 1e-9, with padded rows and a compaction cap that
-  engages.
+  engages.  The unmasked step (JAX's default, ``masked=False``, called
+  in JAX's argument order) against JAX's on the same mesh: counts and
+  inlier masks identical, E to 1e-9, and the same bytes as the masked
+  step at full row counts.
 * ``run_sfm`` on the 3 rendered views of ``tests/test_sfm_pipeline.py``
   with the port's ``loop`` and ``batched`` backends against JAX's loop
   run: each side draws its own RANSAC samples, so keypoints agree within
@@ -70,13 +73,14 @@ def test_ransac_essential_core_given_jax_table(rng):
         table = np.asarray(jran._sample_subsets(key, 256, trials, J(pm)))
         refs.append(jran.ransac_essential_batch(key, J(x0), J(x1), trials, reproj, svr,
                                                 point_mask=J(pm)))
-        outs.append(tran.ransac_essential_core(T(table), T(x0), T(x1), reproj, svr,
-                                               point_mask=T(pm)))
+        outs.append(tran.ransac_essential_core(None, T(x0), T(x1), trials, reproj, svr,
+                                               point_mask=T(pm), sample=T(table)))
         args.append((table, x0, x1, pm))
         _same_winner(outs[-1], refs[-1])
     # the two problems as one batch
     table, x0, x1, pm = (T(np.stack(a)) for a in zip(*args))
-    both = tran.ransac_essential_core(table, x0, x1, reproj, svr, point_mask=pm)
+    both = tran.ransac_essential_core(None, x0, x1, trials, reproj, svr, point_mask=pm,
+                                      sample=table)
     for b, ref in enumerate(refs):
         _same_winner({k: v[b] for k, v in both.items()}, ref)
 
@@ -104,8 +108,38 @@ def _pair_inputs(rng, B=2, n=200, ny=190, X=256, Y=256, D=32):
     return d0, d1, p0, p1, np.full(B, n), np.full(B, ny)
 
 
-def test_two_view_step_vs_jax(rng):
+def jax_step_tables(d0, d1, keys, trials, C, min_ratio, nx=None, ny=None):
+    """JAX's per-pair sample tables, drawn over its own compacted
+    survivors: the ratio test (with the row counts ``nx, ny`` when the
+    step is masked), the survivor compaction, then its sampler."""
     from spectavi_tpu.ops.l2nn import l2_topk_mxu
+
+    Y = d1.shape[1]
+    tables = []
+    for b in range(d0.shape[0]):
+        idx, dist = l2_topk_mxu(J(d0[b]), J(d1[b]), k=2)
+        dd1 = jnp.maximum(dist[:, 0].astype(jnp.float64), 1e-12)
+        dd2 = dist[:, 1].astype(jnp.float64)
+        ok = dd2 >= min_ratio**2 * dd1
+        if nx is not None:
+            ok = ok & (idx[:, 0] < nx[b]) & (jnp.arange(Y) < ny[b])
+        _, topq = jax.lax.top_k(jnp.where(ok, dd2 / dd1, -1.0), C)
+        tables.append(np.asarray(jran._sample_subsets(keys[b], C, trials, ok[topq])))
+    return np.stack(tables)
+
+
+def _assert_step_equal(out, ref):
+    """The first four outputs of two steps: counts and inlier masks
+    identical, E and the camera to 1e-9."""
+    E, P1, count, inl = (np.asarray(o) for o in out[:4])
+    np.testing.assert_array_equal(count, np.asarray(ref[2]))
+    assert (count > 0).all()
+    np.testing.assert_array_equal(inl, np.asarray(ref[3]))
+    np.testing.assert_allclose(E, np.asarray(ref[0]), atol=1e-9)
+    np.testing.assert_allclose(P1, np.asarray(ref[1]), atol=1e-9)
+
+
+def test_two_view_step_vs_jax(rng):
     from spectavi_tpu.parallel.mesh import make_mesh
     from spectavi_tpu.parallel.two_view import make_two_view_step as jax_step
     from spectavi_tpu_torch.parallel.two_view import make_two_view_step
@@ -113,34 +147,53 @@ def test_two_view_step_vs_jax(rng):
     trials, C = 256, 128
     d0, d1, p0, p1, nx, ny = _pair_inputs(rng)
     kw = dict(trials=trials, reproj_allowed=3.35e-3, svr_allowed=1e-3, min_ratio=1.2,
-              compact_to=C)
+              masked=True, compact_to=C)
     keys = jax.random.split(jax.random.PRNGKey(3), 2)
     mesh = make_mesh(n_pairs=1, n_blocks=1, devices=jax.devices()[:1])
-    ref = jax_step(mesh, masked=True, **kw)(J(d0), J(d1), J(p0), J(p1), keys, J(nx), J(ny))
-    # JAX's tables: its own survivor compaction, then its sampler
-    tables = []
-    for b in range(2):
-        idx, dist = l2_topk_mxu(J(d0[b]), J(d1[b]), k=2)
-        dd1 = jnp.maximum(dist[:, 0].astype(jnp.float64), 1e-12)
-        dd2 = dist[:, 1].astype(jnp.float64)
-        ok = (dd2 >= 1.2**2 * dd1) & (idx[:, 0] < nx[b]) & (jnp.arange(256) < ny[b])
-        _, topq = jax.lax.top_k(jnp.where(ok, dd2 / dd1, -1.0), C)
-        tables.append(np.asarray(jran._sample_subsets(keys[b], C, trials, ok[topq])))
-    out = make_two_view_step(**kw)(T(d0), T(d1), T(p0), T(p1), nx, ny, sample=np.stack(tables))
-    E, P1, count, inl, midx0, ratio_ok = (o.numpy() for o in out)
+    ref = jax_step(mesh, **kw)(J(d0), J(d1), J(p0), J(p1), keys, J(nx), J(ny))
+    tables = jax_step_tables(d0, d1, keys, trials, C, 1.2, nx, ny)
+    out = make_two_view_step(None, **kw)(T(d0), T(d1), T(p0), T(p1), None, nx, ny,
+                                         sample=tables)
+    midx0, ratio_ok = (o.numpy() for o in out[4:])
     np.testing.assert_array_equal(midx0, np.asarray(ref[4]))
     np.testing.assert_array_equal(ratio_ok, np.asarray(ref[5]))
     assert (ratio_ok.sum(1) > C).all()  # the compaction cap engaged
-    np.testing.assert_array_equal(count, np.asarray(ref[2]))
-    assert (count > 0).all()
-    np.testing.assert_array_equal(inl, np.asarray(ref[3]))
-    np.testing.assert_allclose(E, np.asarray(ref[0]), atol=1e-9)
-    np.testing.assert_allclose(P1, np.asarray(ref[1]), atol=1e-9)
+    _assert_step_equal(out, ref)
     # the step's own draws: the same matching, a valid winner per pair
-    own = [o.numpy() for o in make_two_view_step(**kw)(T(d0), T(d1), T(p0), T(p1), nx, ny)]
+    own = [o.numpy() for o in make_two_view_step(**kw)(T(d0), T(d1), T(p0), T(p1),
+                                                       nx=nx, ny=ny)]
     np.testing.assert_array_equal(own[4], midx0)
     np.testing.assert_array_equal(own[5], ratio_ok)
     assert (own[2] > 0).all() and (own[3] <= ratio_ok).all()
+
+
+def test_unmasked_two_view_step_vs_jax(rng):
+    # JAX's default form: make_two_view_step(mesh, trials, ...) with
+    # masked=False, the keys as the fifth input and four outputs
+    from spectavi_tpu.parallel.mesh import make_mesh
+    from spectavi_tpu.parallel.two_view import make_two_view_step as jax_step
+    from spectavi_tpu_torch.parallel.two_view import make_two_view_step
+
+    trials, C = 256, 128
+    d0, d1, p0, p1, nx, ny = _pair_inputs(rng, n=256, ny=256)  # no padded row
+    args = (trials, 3.35e-3, 1e-3, 1.2, False, C)
+    keys = jax.random.split(jax.random.PRNGKey(4), 2)
+    mesh = make_mesh(n_pairs=1, n_blocks=1, devices=jax.devices()[:1])
+    ref = jax_step(mesh, *args)(J(d0), J(d1), J(p0), J(p1), keys)
+    tables = jax_step_tables(d0, d1, keys, trials, C, 1.2)
+    step = make_two_view_step(None, *args)
+    out = step(T(d0), T(d1), T(p0), T(p1), sample=tables)
+    assert len(out) == len(ref) == 4
+    _assert_step_equal(out, ref)
+    # the masked step at full row counts gives the same bytes
+    full = make_two_view_step(None, *args[:4], True, C)(T(d0), T(d1), T(p0), T(p1), None,
+                                                        nx, ny, sample=tables)
+    for a, b in zip(out, full[:4]):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+    with pytest.raises(ValueError, match="no row counts"):
+        step(T(d0), T(d1), T(p0), T(p1), None, nx, ny)
+    with pytest.raises(ValueError, match="takes the row counts"):
+        make_two_view_step(None, *args[:4], True, C)(T(d0), T(d1), T(p0), T(p1))
 
 
 RANSAC = {"reprojection_error_allowed": 3e-3}

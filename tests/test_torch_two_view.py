@@ -26,6 +26,8 @@ renderer of ``tests/test_sfm_pipeline.py``), both on the CPU.
   few keypoints sit on the other side of a quantization or ratio
   boundary; at least 99% of the match rows agree (both image points
   within 0.01 px) and the counts agree within 1%.
+* ex01's ``--view`` opens ``<outdir>/sparse_inliers.ply`` after the run,
+  as the JAX package's ex01 does.
 """
 
 import atexit
@@ -295,3 +297,18 @@ def test_plots_are_written(pair, tmp_path):
                         plots=True, device="cpu")
     for name in ("step1-keypoints.png", "step2-matches.png"):
         assert (tmp_path / name).stat().st_size > 1000
+
+
+def test_ex01_view_opens_the_sparse_cloud(tmp_path, monkeypatch):
+    # JAX's ex01 --view: after the run, the sparse cloud in the viewer
+    from spectavi_tpu_torch.pipeline import ex01, viz
+
+    runs, shown = [], []
+    monkeypatch.setattr(ex01, "run_two_view", lambda images, K, **kw: runs.append(kw["outdir"]))
+    monkeypatch.setattr(viz, "try_open3d_viz", shown.append)
+    out = str(tmp_path / "out")
+    ex01.main(["a.png", "b.png", "K.txt", "--device", "cpu", "--outdir", out, "--view"])
+    assert runs == [out]
+    assert shown == [os.path.join(out, "sparse_inliers.ply")]
+    ex01.main(["a.png", "b.png", "K.txt", "--device", "cpu", "--outdir", out])
+    assert len(runs) == 2 and len(shown) == 1  # without --view nothing opens
