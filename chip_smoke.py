@@ -74,6 +74,17 @@ Phases, one JSON line each:
                 called positionally in JAX's order with a seeded
                 generator, each equal to the keyword call with the same
                 seed; milliseconds of each;
+* ``entry_points`` ex01 and ex02 as users run them, from PNG files that
+                the port's codec writes into ``build/entry_points``: ex01
+                and ex02 cold in ``python3 -m ...`` subprocesses with no
+                ``--device``, ex01's file path identical to the byte to
+                its array path, ``--cache``, ``--rsf``/``--reproj``,
+                ``--ba`` and ``--ba --distortion`` (pose gates, 240x320
+                card against CPU), ``--trace``, ex02 exhaustive with a
+                checkpoint and its resume, ``run_sfm`` with
+                ``init="chain", loss="linear"``, host-form SIFT against
+                the CPU, and the codec's times at 2048x3072
+                (``phase_entry_points``);
 * ``distributed`` the mesh layer in worker processes (``--dist-worker``):
                 one NCCL rank and four gloo ranks, each with its own
                 launch counts (``dist_worker``);
@@ -81,8 +92,9 @@ Phases, one JSON line each:
                 run, ms, plain ms, bound ms and what bounds it, ``run_ms``,
                 its summed device time over the profiled warm run,
                 ``launches_sfm`` / ``run_ms_sfm`` of the 10-view run,
-                ``launches_surface`` of the unmasked step and
-                ``launches_dist`` by job and rank.
+                ``launches_surface`` of the unmasked step,
+                ``launches_entry_points`` of that phase's in-process runs
+                and ``launches_dist`` by job and rank.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 last the contract line ``{"ok": true, "device": {...}}``.  Any failure
@@ -1272,6 +1284,335 @@ def phase_surface(torch, np, cap, wrappers):
     return launches
 
 
+# --- the entry points, from files ------------------------------------
+
+
+def run_cli(module, argv, timeout=900):
+    """``python3 -m module argv`` from the repository's root, as a user
+    runs it: ``(seconds, stdout)``; a non-zero exit raises."""
+    t0 = time.perf_counter()
+    path = os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)
+    out = subprocess.run([sys.executable, "-m", module, *argv], cwd=ROOT, capture_output=True,
+                         text=True, timeout=timeout, env=dict(os.environ, PYTHONPATH=path))
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"{module} exited with {out.returncode}:\n{out.stderr[-4000:]}")
+    return seconds, out.stdout
+
+
+def file_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def sift_agreement(np, ref, got):
+    """``test_torch_sift.py``'s rule: the share of ``ref`` rows with a
+    ``got`` row within 0.01 px and 1e-3 rad, and the share of those
+    rows' descriptor bytes within 1 LSB."""
+    from scipy.spatial import cKDTree
+
+    near = cKDTree(got[:, :2]).query_ball_point(ref[:, :2], r=0.01)
+    matched, within = 0, []
+    for i, cand in enumerate(near):
+        if not cand:
+            continue
+        cand = np.asarray(cand)
+        dang = np.abs((got[cand, 3] - ref[i, 3] + np.pi) % (2 * np.pi) - np.pi)
+        if dang.min() < 1e-3:
+            matched += 1
+            within.append(np.abs(got[cand[np.argmin(dang)], 4:] - ref[i, 4:]) <= 1)
+    return matched / max(len(ref), 1), float(np.mean(within)) if within else 0.0
+
+
+def quiet_main(main, argv):
+    """An entry point's ``main(argv)`` in-process, its printing dropped."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return main(argv)
+
+
+def capture_ba(sfm_pkg, seen):
+    """Wrap ``spectavi_tpu_torch.sfm.bundle_adjust`` (which step 4
+    imports at each call) to append each call's cost history and radial
+    coefficients to ``seen``; returns a function that undoes it."""
+    fn = sfm_pkg.bundle_adjust
+
+    def wrapped(*a, **k):
+        out = fn(*a, **k)
+        seen.append({"history": [float(c) for c in out[2]],
+                     "k": [float(v) for v in out[3]] if len(out) > 3 else None})
+        return out
+
+    sfm_pkg.bundle_adjust = wrapped
+    return lambda: setattr(sfm_pkg, "bundle_adjust", fn)
+
+
+def phase_entry_points(torch, np, pair, small, wrappers, smi):
+    """ex01 and ex02 as users run them, from PNG files written by the
+    port's codec into a temporary directory under ``build/`` (removed
+    when every gate holds), on the card:
+
+    * the codec at 2048x3072: encode of the gray pair and of an RGB
+      image, decode of that RGB file (Sub rows) and of the RGB image
+      with every row Paeth filtered (budget 2 s), all exact;
+    * ex01 cold in a subprocess (``python3 -m ...`` with no
+      ``--device``) on the 2048x3072 pair; in-process ``run_two_view``
+      from the files and ``run_two_view_arrays`` on the decoded arrays,
+      same seeded generator: identical matches, inliers, E, points and
+      rectified bytes; the subprocess's cloud has as many vertices and
+      its ``rect-*`` the same pixels; the two-view gates;
+    * ``--cache`` twice in-process (the second run loads the matches),
+      ``--rsf 0.5 --reproj`` on the pair as RGBA files (its four
+      rectified channels written and read back), ``--ba`` and
+      ``--ba --distortion`` with
+      the pose gates, the BA cost not raised and ``|k| < 1e-2``;
+    * at 240x320, the card and the CPU given one ``cache.npz``: the
+      final BA cost within 1e-6 relative (``--ba``) and 1e-4
+      (``--distortion``, ROADMAP C's CG amplification); ``--trace``
+      there, whose trace names the three kernels;
+    * ex02 cold in a subprocess on the 10 rendered 480x640 views,
+      ``--pairs exhaustive --checkpoint``, then again resuming: every
+      pair ``success``, ATE under 2% of the span;
+    * ``run_sfm`` from the same files with ``init="chain",
+      loss="linear"``: ATE under 2% of the span;
+    * host-form SIFT (``sift_filter``, ``sift_filter_batch``,
+      ``sift_filter_striped`` with 3 bands) on one 480x640 view against
+      the port on the CPU, under the SIFT rule.
+
+    Returns the launches of the in-process runs by wrapper."""
+    import shutil
+    import tempfile
+
+    from spectavi_tpu_torch import sfm as sfm_pkg
+    from spectavi_tpu_torch.features import sift
+    from spectavi_tpu_torch.pipeline import ex01
+    from spectavi_tpu_torch.pipeline import io as pio
+    from spectavi_tpu_torch.pipeline.png_timing import encode as png_encode
+    from spectavi_tpu_torch.pipeline.sfm import run_sfm
+    from spectavi_tpu_torch.pipeline.two_view import run_two_view, run_two_view_arrays
+    from spectavi_tpu_torch.sfm import ate_rmse, camera_centers
+
+    grays, colors, K, (R_gt, t_gt) = pair
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ep_dir = tempfile.mkdtemp(prefix="entry_points-", dir=os.path.join(ROOT, "build"))
+    d = lambda *p: os.path.join(ep_dir, *p)
+    for mod_ in wrappers.values():
+        mod_.launches = 0
+    out, bad = {"card": smi}, []
+
+    def gate(ok, name):
+        if not ok:
+            bad.append(name)
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # the codec at 2048x3072
+    paths = [d(f"im{i}.png") for i in (0, 1)]
+    kfile = d("K.txt")
+    np.savetxt(kfile, K)
+    _, enc_gray = synced(lambda: pio.imsave(paths[0], colors[0]))
+    pio.imsave(paths[1], colors[1])
+    rgb = np.stack([colors[0], colors[1], colors[0] // 2 + colors[1] // 2], axis=-1)
+    _, enc_rgb = synced(lambda: pio.imsave(d("rgb.png"), rgb))
+    with open(d("rgb_paeth.png"), "wb") as f:
+        f.write(png_encode(rgb, "paeth", 6))
+    pio._decode.cache_clear()
+    dec, dec_rgb = synced(lambda: pio.imread(d("rgb.png"), dtype="uint8"))
+    dec_p, dec_paeth = synced(lambda: pio.imread(d("rgb_paeth.png"), dtype="uint8"))
+    gate(np.array_equal(dec, rgb) and np.array_equal(dec_p, rgb) and dec_paeth < 2.0, "png_rgb")
+    gate(all(np.array_equal(pio.imread(p, dtype="uint8"), c) for p, c in zip(paths, colors)),
+         "png_gray")
+    out["png"] = {"shape": list(rgb.shape), "encode_gray_s": enc_gray, "encode_rgb_s": enc_rgb,
+                  "decode_rgb_s": dec_rgb, "decode_rgb_paeth_s": dec_paeth,
+                  "rgb_bytes": os.path.getsize(d("rgb.png")),
+                  "rgb_paeth_bytes": os.path.getsize(d("rgb_paeth.png"))}
+
+    # ex01 cold, as a user runs it
+    cli_s, _ = run_cli("spectavi_tpu_torch.pipeline.ex01",
+                       [*paths, kfile, "--outdir", d("ex01_cli"), "--seed", str(SEED)])
+    names = ("sparse_inliers.ply", "rect-im0.png", "rect-im1.png", "metrics.json")
+    gate(all(os.path.getsize(d("ex01_cli", n)) > 0 for n in names), "ex01_cli_outputs")
+
+    def gen(device="cuda"):
+        g = torch.Generator(device=device)
+        g.manual_seed(SEED)
+        return g
+
+    # both without outputs, so that the difference is the two decodes
+    pio._decode.cache_clear()
+    files, files_s = synced(lambda: run_two_view(paths, kfile, outdir=None, generator=gen(),
+                                                 quiet=True))
+    dgrays = [pio.imread(p, dtype="float32", force_grayscale=True) for p in paths]
+    dcolors = [pio.imread(p, dtype="uint8") for p in paths]
+    arrays, arrays_s = synced(lambda: run_two_view_arrays(dgrays, dcolors, np.loadtxt(kfile),
+                                                          generator=gen(), quiet=True))
+    same = {k: same_bytes(np, files[k], arrays[k]) for k in ("matches", "points", "rectified")}
+    same["inliers"] = same_bytes(np, files["ransac"]["inlier_idx"], arrays["ransac"]["inlier_idx"])
+    same["essential"] = same_bytes(np, files["ransac"]["essential"], arrays["ransac"]["essential"])
+    gate(all(same.values()), "files_vs_arrays")
+    rect = [r[..., 0] if r.ndim == 3 else r for r in files["rectified"][:2]]
+    cli_rect = [pio.imread(d("ex01_cli", f"rect-im{i}.png"), dtype="uint8") for i in (0, 1)]
+    cli_ply = pio.read_ply(d("ex01_cli", "sparse_inliers.ply"))
+    gate(cli_ply.shape[0] == files["metrics"]["n_inliers"], "cli_ply_vertices")
+    gate(all(same_bytes(np, a, b) for a, b in zip(cli_rect, rect)), "cli_rect")
+    rot, t_err = check_two_view(np, files, R_gt, t_gt)
+
+    # --cache: written, then loaded
+    argv = [*paths, kfile, "--seed", str(SEED)]
+    c1 = quiet_main(ex01.main, argv + ["--outdir", d("cache"), "--cache"])
+    c2 = quiet_main(ex01.main, argv + ["--outdir", d("cache"), "--cache"])
+    gate(c2["metrics"].get("match_cache_hit") is True and "match_cache_hit" not in c1["metrics"]
+         and same_bytes(np, c1["ransac"]["inlier_idx"], c2["ransac"]["inlier_idx"])
+         and same_bytes(np, c1["ransac"]["essential"], c2["ransac"]["essential"]), "cache")
+    out["ex01"] = {"cold_cli_s": cli_s, "warm_files_s": files_s, "warm_arrays_s": arrays_s,
+                   "identical": same, "n_inliers": files["metrics"]["n_inliers"],
+                   "consensus": files["metrics"]["consensus"], "rotation_err_deg": rot,
+                   "translation_err_deg": t_err,
+                   # step 5 writing rect-* (ex01.main's first --cache run) and not
+                   "step5_with_files_s": c1["metrics"]["step5_seconds"],
+                   "step5_s": arrays["metrics"]["step5_seconds"],
+                   "cli_ply_bytes_equal": file_bytes(d("ex01_cli", names[0])) == file_bytes(
+                       d("cache", names[0]))}
+    out["cache"] = {"first_s": c1["metrics"]["total_seconds"],
+                    "resumed_s": c2["metrics"]["total_seconds"]}
+
+    # --rsf 0.5 and --reproj (twice the default threshold), on the pair
+    # as RGBA files: distinct channels, a varying alpha
+    cpaths = [d(f"c{i}.png") for i in (0, 1)]
+    for p, c in zip(cpaths, colors):
+        g = c.astype(np.int32)
+        pio.imsave(p, np.stack([g, 3 * g // 4 + 32, g // 2 + 100, 255 - g // 8],
+                               axis=-1).astype(np.uint8))
+    rr = quiet_main(ex01.main, [*cpaths, kfile, "--seed", str(SEED), "--outdir", d("rsf"),
+                                "--rsf", "0.5", "--reproj", "6.7e-4"])
+    w_full, w_half = files["rectified"][0].shape[1], rr["rectified"][0].shape[1]
+    gate(int(0.5 * W) - 2 <= w_half <= int(0.5 * W) and w_full > int(0.9 * W), "rsf")
+    crect = [pio.imread(d("rsf", f"rect-c{i}.png"), dtype="uint8") for i in (0, 1)]
+    gate(all(r.ndim == 3 and r.shape[2] == 4 and same_bytes(np, r, q)
+             for r, q in zip(crect, rr["rectified"][:2])), "rgba_rect")
+    rot, t_err = check_two_view(np, rr, R_gt, t_gt)
+    out["rsf_reproj"] = {"rect_shape": list(crect[0].shape), "rect_width_rsf1": w_full,
+                         "n_inliers": rr["metrics"]["n_inliers"], "rotation_err_deg": rot,
+                         "translation_err_deg": t_err}
+
+    # --ba and --ba --distortion at 2048x3072, and at 240x320 card vs CPU
+    seen = []
+    undo = capture_ba(sfm_pkg, seen)
+    try:
+        out["ba"] = {}
+        for name, flags in (("ba", ["--ba"]), ("ba_distortion", ["--ba", "--distortion"])):
+            res = quiet_main(ex01.main, argv + ["--outdir", d(name), *flags])
+            rot, t_err = check_two_view(np, res, R_gt, t_gt)
+            h, k = seen[-1]["history"], seen[-1]["k"]
+            gate(h[-1] <= h[0], f"{name}_cost")
+            if k is not None:
+                gate(max(abs(v) for v in k) < 1e-2, f"{name}_k")
+            out["ba"][name] = {"step4_s": res["metrics"]["step4_seconds"], "cost": [h[0], h[-1]],
+                               "k": k, "rotation_err_deg": rot, "translation_err_deg": t_err}
+        sg, sc, sK, _ = small
+        spaths = [d(f"s{i}.png") for i in (0, 1)]
+        for p, c in zip(spaths, sc):
+            pio.imsave(p, c)
+        np.savetxt(d("Ks.txt"), sK)
+        sargv = [*spaths, d("Ks.txt"), "--seed", str(SEED), "--cache", "--reproj", "1e-2"]
+        os.makedirs(d("small_cpu"))
+        costs = {}
+        for dev in ("cuda", "cpu"):
+            for name, flags in (("ba", ["--ba"]), ("ba_distortion", ["--ba", "--distortion"])):
+                quiet_main(ex01.main, sargv + ["--outdir", d(f"small_{dev}"), "--device", dev,
+                                           *flags])
+                costs.setdefault(name, {})[dev] = seen[-1]["history"][-1]
+            if dev == "cuda":  # the CPU runs take the card's matches
+                shutil.copy(d("small_cuda", "cache.npz"), d("small_cpu", "cache.npz"))
+    finally:
+        undo()
+    for name, bound in (("ba", 1e-6), ("ba_distortion", 1e-4)):
+        c = costs[name]
+        c["rel_diff"] = abs(c["cuda"] - c["cpu"]) / abs(c["cpu"])
+        c["bound"] = bound
+        gate(c["rel_diff"] < bound, f"small_{name}_cpu")
+    out["ba_small_card_vs_cpu"] = costs
+
+    # --trace on the small pair: the trace names the three kernels
+    quiet_main(ex01.main, [*spaths, d("Ks.txt"), "--outdir", d("small_trace"), "--trace",
+                           d("trace")])
+    traces = [f for f in os.listdir(d("trace")) if f.endswith(".json")]
+    text = "".join(file_bytes(d("trace", f)).decode() for f in traces)
+    found = {name: any(f in text for f in fns) for name, fns in DEVICE_FUNCTIONS.items()}
+    gate(bool(traces) and all(found.values()), "trace")
+    out["trace"] = {"files": len(traces), "bytes": len(text), "kernels": found}
+
+    # ex02 cold, as a user runs it, then resuming from its checkpoint
+    vgrays, vcolors, vK, poses = render_views(SFM_VIEWS, SFM_H, SFM_W, "cuda", SFM_TEX)
+    gt_C = np.array([C for _, _, C in poses])
+    vpaths = [d(f"v{i:02d}.png") for i in range(SFM_VIEWS)]
+    for p, c in zip(vpaths, vcolors):
+        pio.imsave(p, c)
+    np.savetxt(d("Kv.txt"), vK)
+    span = np.ptp(gt_C, axis=0).max()
+    out["ex02"] = {}
+    for name in ("cold", "resume"):
+        secs, stdout = run_cli("spectavi_tpu_torch.pipeline.ex02",
+                               [*vpaths, d("Kv.txt"), "--pairs", "exhaustive", "--checkpoint",
+                                d("ex02_state.npz"), "--outdir", d(f"ex02_{name}"),
+                                "--seed", str(SEED)])
+        with open(d(f"ex02_{name}", "metrics.json")) as f:
+            m = json.load(f)
+        cams = np.loadtxt(d(f"ex02_{name}", "poses.txt"))
+        share = ate_rmse(camera_centers(cams), gt_C) / span
+        resumed = "resuming BA from checkpoint" in stdout
+        pairs_ok = len(m["pairs"]) == SFM_VIEWS * (SFM_VIEWS - 1) // 2 and all(
+            p.get("success") for p in m["pairs"])
+        gate(pairs_ok and share < 0.02 and resumed == (name == "resume"), f"ex02_{name}")
+        out["ex02"][name] = {"cli_s": secs, "pairs": len(m["pairs"]),
+                             "failed_pairs": [p["pair"] for p in m["pairs"] if not p.get("success")],
+                             "min_inlier_percent": min(p.get("inlier_percent", 0.0)
+                                                       for p in m["pairs"]),
+                             "init_used": m["init_used"], "pair_backend": m["pair_backend"],
+                             "tracks": m["n_tracks"], "ate_share": share, "resumed": resumed,
+                             "ba_cost": [m["ba_cost_initial"], m["ba_cost_final"]]}
+
+    # run_sfm from the same files with init="chain", loss="linear"
+    res, secs = synced(lambda: run_sfm(vpaths, d("Kv.txt"), pairs="exhaustive", init="chain",
+                                       loss="linear", generator=gen(), quiet=True))
+    share = ate_rmse(camera_centers(res["cams"]), gt_C) / span
+    m = res["metrics"]
+    gate(m["init_used"] == "chain" and share < 0.02
+         and m["ba_cost_final"] <= m["ba_cost_initial"], "chain_linear")
+    out["chain_linear"] = {"s": secs, "ate_share": share, "init_used": m["init_used"],
+                           "tracks": m["n_tracks"]}
+
+    # host-form SIFT on one view: the card against the port on the CPU
+    g0 = vgrays[0]
+    ref = sift.sift_filter(g0, device="cpu")
+    ref_striped = sift.sift_filter_striped(g0, nthread=3, device="cpu")
+    out["host_sift"] = {}
+    for name, got, r in (("sift_filter", sift.sift_filter(g0, device="cuda"), ref),
+                         ("sift_filter_batch", sift.sift_filter_batch([g0], device="cuda")[0], ref),
+                         ("sift_filter_striped",
+                          sift.sift_filter_striped(g0, nthread=3, device="cuda"), ref_striped)):
+        kp_share, byte_share = sift_agreement(np, r, got)
+        gate(abs(len(got) - len(r)) <= 0.01 * len(r) and kp_share >= 0.99
+             and byte_share >= 0.99, name)
+        out["host_sift"][name] = {"keypoints": [len(got), len(r)], "kp_share": kp_share,
+                                  "byte_share": byte_share}
+
+    launches = {name: mod_.launches for name, mod_ in wrappers.items()}
+    gate(all(v > 0 for v in launches.values()), "launches")
+    emit("entry_points", launches=launches, failed=bad, **out)
+    if bad:
+        raise AssertionError(f"the entry_points phase failed on {bad} (files in {ep_dir})")
+    shutil.rmtree(ep_dir)
+    return launches
+
+
 # --- distribution over torch.distributed ----------------------------
 
 # the distributed phase's jobs: backend, ranks, matching meshes (n_pairs, n_blocks).
@@ -1713,6 +2054,11 @@ def main(argv):
     t0 = time.perf_counter()
     launches_surface = phase_surface(torch, np, step_capture, wrappers)
     phase_s["surface"] = time.perf_counter() - t0
+    # ex01 and ex02 from PNG files, as users run them
+    t0 = time.perf_counter()
+    launches_entry = phase_entry_points(torch, np, (grays, colors, K, (R_gt, t_gt)), small,
+                                        wrappers, smi)
+    phase_s["entry_points"] = time.perf_counter() - t0
     # the mesh layer in worker processes, each counting its own launches
     t0 = time.perf_counter()
     launches_dist = phase_distributed(torch, np, warm_sfm, sfm_K, step_capture, smi)
@@ -1735,6 +2081,7 @@ def main(argv):
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
             "run_ms": run_ms[name], "launches_sfm": launches_sfm[name],
             "run_ms_sfm": run_ms_sfm[name], "launches_surface": launches_surface[name],
+            "launches_entry_points": launches_entry[name],
             # by rank, in each job of the distributed phase
             "launches_dist": {job: counts[name] for job, counts in launches_dist.items()},
         })

@@ -74,7 +74,7 @@ def main(argv=None):
 
         trace_ctx = trace(args.trace)
     with trace_ctx:
-        run_two_view(
+        res = run_two_view(
             args.images,
             args.K,
             outdir=args.outdir,
@@ -94,6 +94,7 @@ def main(argv=None):
         from spectavi_tpu_torch.pipeline.viz import try_open3d_viz
 
         try_open3d_viz(os.path.join(args.outdir, "sparse_inliers.ply"))
+    return res
 
 
 if __name__ == "__main__":

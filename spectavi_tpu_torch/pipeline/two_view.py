@@ -30,7 +30,7 @@ import torch
 
 from spectavi_tpu_torch import mvg, resolve_device
 from spectavi_tpu_torch.features import normalize_to_ubyte_and_multiple_16_dim, sift_filter_batch
-from spectavi_tpu_torch.pipeline.io import Timer, imread, write_ply
+from spectavi_tpu_torch.pipeline.io import Timer, imread, imsave, write_ply
 
 
 def homogeneous(x):
@@ -238,11 +238,9 @@ def step5_rectify(ransac, K, image_paths, outdir=None, sampling_factor=1.0, quie
             r0u = np.clip(r0 * 255, 0, 255).astype("uint8")
             r1u = np.clip(r1 * 255, 0, 255).astype("uint8")
     if outdir is not None:
-        from PIL import Image
-
         for r, p in ((r0u, image_paths[0]), (r1u, image_paths[1])):
             arr = r[..., 0] if (r.ndim == 3 and r.shape[-1] == 1) else r
-            Image.fromarray(arr).save(os.path.join(outdir, "rect-" + os.path.basename(p)))
+            imsave(os.path.join(outdir, "rect-" + os.path.basename(p)), arr)
         for ri, p in ((ri0, image_paths[0]), (ri1, image_paths[1])):
             stem = os.path.basename(p).split(".")[0]
             ri.tofile(os.path.join(outdir, "rect-idx-" + stem) + ".bin")
@@ -260,6 +258,9 @@ def run_two_view_arrays(grays, colors, K, image_names=("im0.png", "im1.png"), ou
     ``outdir`` is set, are named after ``image_names``.  Returns the
     same dict as :func:`run_two_view`."""
     dev = resolve_device(device)
+    if plots and outdir is not None:
+        # the plots come after SIFT and matching: fail before them
+        import matplotlib  # noqa: F401
     if outdir is not None:
         os.makedirs(outdir, exist_ok=True)
     K = np.asarray(K, dtype=np.float64)

@@ -211,3 +211,18 @@ def test_segment_sums(rng):
     np.add.at(want, idx, vals)
     np.testing.assert_allclose(seg(T(vals)).numpy(), want, atol=1e-13)
     assert torch.equal(seg(T(vals)), seg(T(vals)))
+
+
+@pytest.mark.parametrize("name", ["huber_weights", "huber_cost"])
+def test_huber_vs_jax(rng, name):
+    # residual norms on both sides of delta, and exact zeros
+    norms = np.abs(rng.standard_normal(200)) * 3e-3
+    norms[:5] = 0.0
+    w = rng.uniform(0.2, 1.0, 200)
+    delta = 2e-3
+    if name == "huber_weights":
+        got, ref = tba.huber_weights(T(norms), delta), jba.huber_weights(J(norms), delta)
+        assert (np.asarray(ref) < 1).any() and (np.asarray(ref) == 1).any()
+    else:
+        got, ref = tba.huber_cost(T(norms), T(w), delta), jba.huber_cost(J(norms), J(w), delta)
+    _close(got, ref, 1e-14)

@@ -239,3 +239,23 @@ def test_entry_point_defaults_to_the_card(rng, name, monkeypatch):
     call, _, _ = _entry_point_case(name, rng)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
+
+
+def _small_public_case(name, rng):
+    """``(port, JAX)`` outputs of one small public function of ``mvg``."""
+    if name == "camera_from_rt":
+        R = np.stack([np.asarray(jcore.skew_symmetric(J(v))) for v in rng.standard_normal((5, 3))])
+        t = rng.standard_normal((5, 3))
+        return tcore.camera_from_rt(T(R), T(t)).numpy(), np.asarray(jcore.camera_from_rt(J(R), J(t)))
+    x0, x1 = _scene(rng, 60, outliers=0.2)
+    P0 = np.hstack([np.eye(3), np.zeros((3, 1))])
+    P1 = np.hstack([np.eye(3), np.array([[-1.0], [0.1], [0.2]])])
+    return (ttri.reprojection_error(T(P0), T(P1), T(x0), T(x1)).numpy(),
+            np.asarray(jtri.reprojection_error(J(P0), J(P1), J(x0), J(x1))))
+
+
+@pytest.mark.parametrize("name,atol", [("camera_from_rt", 0.0), ("reprojection_error", 1e-12)])
+def test_small_public_functions_vs_jax(rng, name, atol):
+    got, ref = _small_public_case(name, rng)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    np.testing.assert_allclose(got, ref, rtol=0, atol=atol)

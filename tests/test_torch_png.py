@@ -1,0 +1,333 @@
+"""The port's PNG codec (``spectavi_tpu_torch.pipeline.io``) against Pillow.
+
+* Decode: every colour type the codec reads (gray, RGB, palette,
+  gray + alpha, RGBA), each with every row written with one of the five
+  filters, with a random filter a row over several IDAT chunks beside
+  ancillary chunks, and as Pillow saves it, gives exactly Pillow's array
+  (``np.asarray(Image.open(f))``): values, dtype and shape.  Pillow has no
+  option that forces a row filter, so those files come from this file's
+  own encoder (``_png``) and Pillow's decode is the reference.  The
+  repository's own PNGs agree too.
+* The writer (``imsave``): gray, gray + alpha, RGB and RGBA files that
+  Pillow reads back to the same pixels.
+* The variants the codec does not read (16-bit, interlaced, JPEG) go
+  to Pillow; malformed files raise.
+* With Pillow blocked (``sys.modules["PIL"] = None``, in a subprocess):
+  ``imread`` of a PNG works and of a JPEG raises an ``ImportError`` that
+  names Pillow; ex01 and ex02 run from PNG files on the CPU and write
+  their outputs; ex01 ``--plots`` with matplotlib blocked raises before
+  SIFT runs.
+"""
+
+import os
+import pathlib
+import struct
+import subprocess
+import sys
+import zlib
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from spectavi_tpu_torch.pipeline import io as pio
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+# colour type -> (channels, Pillow mode)
+TYPES = {0: (1, "L"), 2: (3, "RGB"), 3: (1, "P"), 4: (2, "LA"), 6: (4, "RGBA")}
+PALETTE = bytes(np.random.default_rng(7).integers(0, 256, 3 * 40, dtype=np.uint8))
+
+
+def _pixels(rng, ctype, h=37, w=53):
+    """A smooth image with noise (so every predictor matters), as uint8."""
+    ch = TYPES[ctype][0]
+    if ctype == 3:
+        return rng.integers(0, 40, (h, w), dtype=np.uint8)
+    x = np.cumsum(rng.integers(-9, 10, (h, w, ch)), axis=1) + np.cumsum(
+        rng.integers(-9, 10, (h, 1, ch)), axis=0)
+    x = (x - x.min()) % 256
+    return x.astype(np.uint8)[..., 0] if ch == 1 else x.astype(np.uint8)
+
+
+def _filter_row(cur, prev, f, bpp):
+    """One row filtered with type ``f`` (the PNG specification's
+    formulas, byte by byte on the original pixels)."""
+    out = np.zeros(len(cur), np.int64)
+    for i in range(len(cur)):
+        a = int(cur[i - bpp]) if i >= bpp else 0
+        b = int(prev[i])
+        c = int(prev[i - bpp]) if i >= bpp else 0
+        if f == 0:
+            p = 0
+        elif f == 1:
+            p = a
+        elif f == 2:
+            p = b
+        elif f == 3:
+            p = (a + b) // 2
+        else:
+            pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+            p = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        out[i] = (int(cur[i]) - p) % 256
+    return out.astype(np.uint8)
+
+
+def _chunk(ctype, body):
+    return struct.pack(">I", len(body)) + ctype + body + struct.pack(
+        ">I", zlib.crc32(ctype + body))
+
+
+def _png(arr, ctype, filters, idat_parts=1, extra=()):
+    """A PNG of ``arr`` with row ``r`` filtered by ``filters[r]``, its
+    data split over ``idat_parts`` IDAT chunks, ``extra`` chunks
+    (name, body) written before the first."""
+    h, w = arr.shape[:2]
+    bpp = TYPES[ctype][0]
+    rows = arr.reshape(h, w * bpp)
+    prev = np.zeros(w * bpp, np.uint8)
+    raw = b""
+    for r in range(h):
+        raw += bytes([filters[r]]) + _filter_row(rows[r], prev, filters[r], bpp).tobytes()
+        prev = rows[r]
+    comp = zlib.compress(raw)
+    cut = np.linspace(0, len(comp), idat_parts + 1).astype(int)
+    out = pio.PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+    if ctype == 3:
+        out += _chunk(b"PLTE", PALETTE)
+    for name, body in extra:
+        out += _chunk(name, body)
+    for i in range(idat_parts):
+        out += _chunk(b"IDAT", comp[cut[i]:cut[i + 1]])
+    return out + _chunk(b"IEND", b"")
+
+
+def _same_as_pillow(path):
+    got = pio.imread(str(path), dtype="uint8")
+    ref = np.asarray(Image.open(path))
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+    return got
+
+
+@pytest.mark.parametrize("filt", [0, 1, 2, 3, 4, "mixed", "mixed-0-2", "pillow"])
+@pytest.mark.parametrize("ctype", sorted(TYPES))
+def test_decode_equals_pillow(tmp_path, ctype, filt):
+    rng = np.random.default_rng(ctype * 10 + (filt if isinstance(filt, int) else 7))
+    arr = _pixels(rng, ctype)
+    path = tmp_path / "im.png"
+    if filt == "pillow":  # Pillow's own choice of filters (adaptive)
+        im = Image.fromarray(arr, TYPES[ctype][1])
+        if ctype == 3:
+            im.putpalette(PALETTE)
+        im.save(path)
+    elif filt in ("mixed", "mixed-0-2"):  # a filter a row, three IDATs, ancillary chunks
+        extra = [(b"tEXt", b"Comment\x00made by a test"), (b"gAMA", struct.pack(">I", 45455))]
+        if ctype == 3:
+            extra.append((b"tRNS", bytes(range(0, 200, 5))))
+        # None, Sub and Up only: the codec's row-at-a-time path
+        types = 3 if filt == "mixed-0-2" else 5
+        path.write_bytes(_png(arr, ctype, rng.integers(0, types, arr.shape[0]), 3, extra))
+    else:
+        path.write_bytes(_png(arr, ctype, [filt] * arr.shape[0]))
+    got = _same_as_pillow(path)
+    np.testing.assert_array_equal(got, arr)
+
+
+@pytest.mark.parametrize("name", ["artifacts/round2/synth_view00.png",
+                                  "artifacts/round1/castle_step1-keypoints.png",
+                                  "artifacts/round1/castle_step2-matches.png"])
+def test_repository_pngs(name):
+    data = (ROOT / name).read_bytes()
+    assert pio._read_png(data) is not None
+    _same_as_pillow(ROOT / name)
+
+
+@pytest.mark.parametrize("shape", [(61, 47), (33, 70, 3), (1, 1), (1, 9, 3), (29, 31, 2),
+                                   (17, 40, 4), (1, 1, 4)])
+def test_writer_round_trip(tmp_path, shape):
+    arr = np.random.default_rng(len(shape)).integers(0, 256, shape, dtype=np.uint8)
+    path = tmp_path / "w.png"
+    pio.imsave(str(path), arr)
+    ref = np.asarray(Image.open(path))
+    assert ref.dtype == np.uint8 and ref.shape == arr.shape
+    np.testing.assert_array_equal(ref, arr)
+    np.testing.assert_array_equal(_same_as_pillow(path), arr)
+
+
+def test_writer_refuses_other_arrays(tmp_path):
+    for bad in (np.zeros((4, 4), np.float32), np.zeros((4, 4, 5), np.uint8),
+                np.zeros((2, 2, 2, 2), np.uint8)):
+        with pytest.raises(ValueError):
+            pio.imsave(str(tmp_path / "x.png"), bad)
+
+
+def _adam7(arr):
+    """An interlaced (Adam7) 8-bit gray PNG of ``arr``, filter 0."""
+    h, w = arr.shape
+    raw = b""
+    for y0, x0, dy, dx in ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+                           (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1)):
+        sub = arr[y0::dy, x0::dx]
+        if sub.size:
+            raw += b"".join(b"\x00" + r.tobytes() for r in sub)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 1)
+    return (pio.PNG_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(raw))
+            + _chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("variant", ["16-bit", "interlaced", "jpeg"])
+def test_other_variants_go_to_pillow(tmp_path, variant):
+    rng = np.random.default_rng(3)
+    arr = rng.integers(0, 256, (21, 30), dtype=np.uint8)
+    path = tmp_path / ("im.jpg" if variant == "jpeg" else "im.png")
+    if variant == "16-bit":
+        Image.fromarray(arr.astype(np.uint16) * 257).save(path)
+    elif variant == "interlaced":
+        path.write_bytes(_adam7(arr))
+    else:
+        Image.fromarray(arr).save(path, quality=90)
+    if variant != "jpeg":
+        assert pio._read_png(path.read_bytes()) is None
+    got = _same_as_pillow(path)
+    if variant == "interlaced":
+        np.testing.assert_array_equal(got, arr)
+
+
+def _corrupt(data, how):
+    if how == "crc":
+        return data[:-5] + bytes([data[-5] ^ 1]) + data[-4:]  # IEND's CRC
+    if how == "truncated":
+        return data[:len(data) // 2]
+    if how == "no-idat":
+        i = data.index(b"IDAT") - 4
+        n = struct.unpack(">I", data[i:i + 4])[0]
+        return data[:i] + data[i + 12 + n:]
+    if how == "filter-type":
+        raw = b"\x07" + b"\x00" * 4
+        return (pio.PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 1, 8, 0, 0, 0, 0))
+                + _chunk(b"IDAT", zlib.compress(raw)) + _chunk(b"IEND", b""))
+    if how == "short-data":
+        return (pio.PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 2, 8, 0, 0, 0, 0))
+                + _chunk(b"IDAT", zlib.compress(b"\x00" * 5)) + _chunk(b"IEND", b""))
+    raise ValueError(how)
+
+
+@pytest.mark.parametrize("how", ["crc", "truncated", "no-idat", "filter-type", "short-data"])
+def test_malformed_png_raises(tmp_path, how):
+    arr = np.random.default_rng(5).integers(0, 256, (9, 11), dtype=np.uint8)
+    path = tmp_path / "bad.png"
+    path.write_bytes(_corrupt(_png(arr, 0, [4] * 9), how))
+    with pytest.raises(ValueError):
+        pio.imread(str(path), dtype="uint8")
+
+
+def _run_blocked(code, blocked=("PIL",), timeout=240):
+    """Run ``code`` in a fresh interpreter in which importing any of
+    ``blocked`` raises ImportError."""
+    pre = "import sys\n" + "".join(f"sys.modules[{m!r}] = None\n" for m in blocked)
+    path = os.pathsep.join(p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)
+    env = dict(os.environ, PYTHONPATH=path)
+    return subprocess.run([sys.executable, "-c", pre + code], capture_output=True, text=True,
+                          timeout=timeout, env=env, cwd=str(ROOT))
+
+
+def _cli(module, argv):
+    return (f"import runpy\nsys.argv = {[module] + list(argv)!r}\n"
+            f"runpy.run_module({module!r}, run_name='__main__')\n")
+
+
+@pytest.fixture(scope="module")
+def views(tmp_path_factory):
+    """The 3 rendered 120x160 views of ``tests/test_sfm_pipeline.py``
+    (written by Pillow) and their K file."""
+    from test_sfm_pipeline import _tiny_dataset
+
+    tmp = tmp_path_factory.mktemp("views")
+    paths, kfile, _ = _tiny_dataset(tmp, np.random.default_rng(0xDEADBEEF))
+    return tmp, paths, kfile
+
+
+def test_imread_without_pillow(views, tmp_path):
+    _, paths, _ = views
+    jpg = tmp_path / "im.jpg"
+    Image.fromarray(np.zeros((8, 8), np.uint8)).save(jpg)
+    code = (
+        "import numpy as np\n"
+        "from spectavi_tpu_torch.pipeline.io import imread\n"
+        f"print(imread({paths[0]!r}, dtype='uint8').shape)\n"
+        "try:\n"
+        f"    imread({str(jpg)!r})\n"
+        "except ImportError as e:\n"
+        "    print('ImportError:', e)\n")
+    out = _run_blocked(code)
+    assert out.returncode == 0, out.stderr
+    assert "(120, 160)" in out.stdout
+    assert "ImportError:" in out.stdout and "Pillow" in out.stdout
+
+
+def test_ex01_without_pillow(views, tmp_path):
+    _, paths, kfile = views
+    out = tmp_path / "ex01"
+    res = _run_blocked(_cli("spectavi_tpu_torch.pipeline.ex01",
+                            [paths[0], paths[1], kfile, "--device", "cpu", "--outdir", str(out),
+                             "--reproj", "3e-3"]))
+    assert res.returncode == 0, res.stderr[-3000:]
+    for name in ("sparse_inliers.ply", "rect-v0.png", "rect-v1.png", "metrics.json"):
+        assert (out / name).stat().st_size > 0
+    for name in ("rect-v0.png", "rect-v1.png"):
+        assert np.asarray(Image.open(out / name)).dtype == np.uint8
+
+
+def test_ex02_without_pillow(views, tmp_path):
+    _, paths, kfile = views
+    out = tmp_path / "ex02"
+    res = _run_blocked(_cli("spectavi_tpu_torch.pipeline.ex02",
+                            [*paths, kfile, "--device", "cpu", "--outdir", str(out),
+                             "--ba_iters", "3"]))
+    assert res.returncode == 0, res.stderr[-3000:]
+    for name in ("sparse_cloud.ply", "poses.txt", "metrics.json"):
+        assert (out / name).stat().st_size > 0
+
+
+def test_plots_without_matplotlib_fail_before_sift(views, tmp_path):
+    _, paths, kfile = views
+    cli = _cli("spectavi_tpu_torch.pipeline.ex01",
+               [paths[0], paths[1], kfile, "--device", "cpu", "--outdir", str(tmp_path / "p"),
+                "--plots"])
+    code = ("try:\n" + "".join("    " + line + "\n" for line in cli.splitlines())
+            + "except ImportError as e:\n    print('ImportError:', e)\n")
+    res = _run_blocked(code, blocked=("PIL", "matplotlib"))
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "ImportError:" in res.stdout and "matplotlib" in res.stdout
+    assert "step1-computation" not in res.stdout
+
+
+@pytest.mark.parametrize("name", ["write_ply", "read_ply", "read_txt_matrix", "write_metrics"])
+def test_io_helpers_vs_jax(tmp_path, name):
+    from spectavi_tpu.pipeline import io as jio
+
+    rng = np.random.default_rng(9)
+    pts = np.hstack([rng.standard_normal((25, 3)), np.ones((25, 1))])
+    rgb = rng.integers(0, 256, (25, 3)).astype(np.uint8)
+    if name in ("write_ply", "read_ply"):
+        for color in (None, rgb):
+            pio.write_ply(str(tmp_path / "t.ply"), pts, rgb=color)
+            jio.write_ply(str(tmp_path / "j.ply"), pts, rgb=color)
+            assert (tmp_path / "t.ply").read_bytes() == (tmp_path / "j.ply").read_bytes()
+            got, ref = pio.read_ply(str(tmp_path / "j.ply")), jio.read_ply(str(tmp_path / "t.ply"))
+            np.testing.assert_array_equal(got, ref)
+            np.testing.assert_allclose(got, pts[:, :3], atol=5e-7)
+    elif name == "read_txt_matrix":
+        (tmp_path / "m.txt").write_text("# K\n1 0 2.5\n\n0 1 -3e-2\n0 0 1\n")
+        for header in (True, False):
+            if not header:
+                (tmp_path / "m.txt").write_text("1 0 2.5\n0 1 -3e-2\n")
+            got = pio.read_txt_matrix(str(tmp_path / "m.txt"), header=header)
+            ref = jio.read_txt_matrix(str(tmp_path / "m.txt"), header=header)
+            assert got.dtype == ref.dtype
+            np.testing.assert_array_equal(got, ref)
+    else:
+        m = {"b": [1, 2], "a": np.float32(0.5), "s": "x", "f": 1.25}
+        pio.write_metrics(str(tmp_path / "t.json"), m)
+        jio.write_metrics(str(tmp_path / "j.json"), m)
+        assert (tmp_path / "t.json").read_bytes() == (tmp_path / "j.json").read_bytes()

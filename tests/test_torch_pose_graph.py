@@ -14,6 +14,7 @@ import importlib
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 torch.set_num_threads(2)
@@ -119,3 +120,24 @@ def test_checkpoint_round_trips_between_packages(tmp_path, rng):
         np.testing.assert_array_equal(t, tracks)
         assert float(extra["lam"]) == 1e-3
     assert tck.load_sfm_state(str(tmp_path / "missing.npz")) is None
+
+
+@pytest.mark.parametrize("name", ["compose_relative", "align_clouds_icp"])
+def test_pose_helpers_vs_jax(rng, name):
+    if name == "compose_relative":
+        Ri, Rij = (np.asarray(jba.rodrigues(jnp.asarray(v))) for v in rng.standard_normal((2, 3)))
+        ti, tij = rng.standard_normal((2, 3))
+        for a, b in zip(tpg.compose_relative((Ri, ti), (Rij, tij)),
+                        jpg.compose_relative((Ri, ti), (Rij, tij))):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=1e-12)
+        return
+    # a cloud and a rotated, scaled, shifted and noisy copy in another
+    # order, with a tenth of the points replaced by outliers
+    _, pts, _, _ = _ring(rng, V=4)
+    dst = 1.3 * pts @ np.asarray(jba.rodrigues(jnp.asarray([0.02, -0.03, 0.01]))).T + 0.05
+    dst = dst[rng.permutation(len(dst))] + 1e-3 * rng.standard_normal(dst.shape)
+    dst[: len(dst) // 10] += rng.uniform(-2, 2, (len(dst) // 10, 3))
+    got, rmse = tate.align_clouds_icp(pts, dst)
+    ref, rmse_j = jate.align_clouds_icp(pts, dst)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=0, atol=1e-9)
+    assert abs(rmse - rmse_j) <= 1e-9

@@ -31,6 +31,20 @@ T = lambda a: torch.as_tensor(np.array(a))
 J = jnp.asarray
 
 
+def hand_jax_draws(monkeypatch, seed):
+    """Make the port's RANSAC sampler return the tables that JAX's
+    ``ransac_fitter(key=PRNGKey(seed))`` draws, block after block (one
+    key split a block, as JAX's fitter does)."""
+    state = {"key": jax.random.PRNGKey(seed)}
+
+    def draw(n, trials, point_mask, generator=None):
+        state["key"], sub = jax.random.split(state["key"])
+        table = jran._sample_subsets(sub, n, trials, J(point_mask.cpu().numpy()))
+        return torch.tensor(np.asarray(table), device=point_mask.device)
+
+    monkeypatch.setattr(tran, "sample_subsets", draw)
+
+
 def _padded(x0, x1):
     N = x0.shape[0]
     Np = max(16, 1 << (N - 1).bit_length())
@@ -150,3 +164,15 @@ def test_none_generator_draws_seed_zero(rng):
         for k in a:
             assert a[k].numpy().tobytes() == b[k].numpy().tobytes(), (name, k)
             assert a[k].numpy().tobytes() == c[k].numpy().tobytes(), (name, k)
+
+
+def test_ransac_fitter_given_jax_draws(rng, monkeypatch):
+    # the fitter handed JAX's draws: JAX's winner, block for block
+    x0, x1 = _scene(rng, n=300)
+    opts = {"reprojection_error_allowed": 3.35e-4, "maximum_tries": 4096}
+    ref = jmvg.ransac_fitter(x0, x1, options=opts, key=jax.random.PRNGKey(5))
+    hand_jax_draws(monkeypatch, 5)
+    got = tmvg.ransac_fitter(x0, x1, options=opts, device="cpu")
+    np.testing.assert_array_equal(got["inlier_idx"], np.asarray(ref["inlier_idx"]))
+    np.testing.assert_allclose(got["essential"], np.asarray(ref["essential"]), atol=1e-9)
+    np.testing.assert_allclose(got["camera"], np.asarray(ref["camera"]), atol=1e-9)

@@ -297,3 +297,21 @@ def test_entry_points_default_to_the_card(monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError):
             call()
+
+
+def test_match_pair_vs_jax(rng):
+    # keypoint tables (n, 132): the queries are noisy copies of a
+    # shuffled subset of the database rows, among unrelated rows
+    from spectavi_tpu.pipeline.sfm import match_pair as jax_match_pair
+    from spectavi_tpu_torch.pipeline.sfm import match_pair
+
+    a = np.hstack([rng.uniform(0, 100, (300, 4)), rng.integers(0, 120, (300, 128))])
+    b = np.hstack([rng.uniform(0, 100, (280, 4)), rng.integers(0, 120, (280, 128))])
+    perm = rng.permutation(300)[:200]
+    b[:200, 4:] = np.clip(a[perm, 4:] + rng.integers(-3, 4, (200, 128)), 0, 255)
+    got = match_pair(a.astype(np.float32), b.astype(np.float32), device="cpu")
+    ref = jax_match_pair(a.astype(np.float32), b.astype(np.float32))
+    assert len(ref[0]) >= 150
+    for g, r in zip(got, ref):
+        assert g.dtype == np.int64
+        np.testing.assert_array_equal(g, np.asarray(r))

@@ -312,3 +312,64 @@ def test_ex01_view_opens_the_sparse_cloud(tmp_path, monkeypatch):
     assert shown == [os.path.join(out, "sparse_inliers.ply")]
     ex01.main(["a.png", "b.png", "K.txt", "--device", "cpu", "--outdir", out])
     assert len(runs) == 2 and len(shown) == 1  # without --view nothing opens
+
+
+def _step_case(name, pair, monkeypatch, tmp_path):
+    """``(port, JAX)`` results of one ex01 step run separately."""
+    from spectavi_tpu.pipeline import two_view as jtv
+    from spectavi_tpu_torch.pipeline import two_view as ttv
+    from test_torch_mvg import _scene
+    from test_torch_ransac import hand_jax_draws
+
+    _, paths, kfile = pair
+    K = np.loadtxt(kfile)
+    if name == "step1_sift_detect":
+        return (ttv.step1_sift_detect(paths, quiet=True, device="cpu"),
+                jtv.step1_sift_detect(paths, quiet=True))
+    x0, x1 = _scene(np.random.default_rng(3), n=200)
+    xd, yd = (np.hstack([x, np.ones((len(x), 1))]) @ K.T for x in (x0, x1))
+    if name == "step3_estimate_essential":
+        hand_jax_draws(monkeypatch, 2)
+        return (ttv.step3_estimate_essential(xd, yd, K, quiet=True, device="cpu"),
+                jtv.step3_estimate_essential(xd, yd, K, key=jax.random.PRNGKey(2), quiet=True))
+    # step 5 given one camera, writing the rectified pair
+    ransac = {"camera": np.hstack([np.eye(3), np.array([[-1.0], [0.1], [0.2]])])}
+    outs = []
+    for side, step5 in (("port", ttv.step5_rectify), ("jax", jtv.step5_rectify)):
+        d = tmp_path / side
+        d.mkdir()
+        kw = {"device": "cpu"} if side == "port" else {}
+        res = step5(ransac, K, paths, outdir=str(d), sampling_factor=1.0, quiet=True, **kw)
+        files = [imread(str(d / ("rect-" + os.path.basename(p))), dtype="uint8") for p in paths]
+        outs.append((res, files))
+    return outs
+
+
+@pytest.mark.parametrize("name", ["step1_sift_detect", "step3_estimate_essential",
+                                  "step5_rectify"])
+def test_steps_vs_jax(pair, monkeypatch, tmp_path, name):
+    got, ref = _step_case(name, pair, monkeypatch, tmp_path)
+    if name == "step1_sift_detect":
+        # test_torch_sift.py's rule
+        from test_torch_sift import _agreement
+
+        for g, r in zip(got, ref):
+            assert abs(len(g) - len(r)) <= 0.01 * len(r)
+            assert min(_agreement(r, g)) >= 0.99
+    elif name == "step3_estimate_essential":
+        # given JAX's draws: JAX's winner, and the same calibrated points
+        (rt, *pts_t), (rj, *pts_j) = got, ref
+        np.testing.assert_array_equal(rt["inlier_idx"], np.asarray(rj["inlier_idx"]))
+        assert rt["success"] == rj["success"] and rt["inlier_percent"] == rj["inlier_percent"]
+        np.testing.assert_allclose(rt["camera"], np.asarray(rj["camera"]), atol=1e-9)
+        for a, b in zip(pts_t, pts_j):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-15)
+    else:
+        # the same float64 rectification, and the same pixels from the
+        # files (JAX writes with Pillow, the port with its codec)
+        (res_t, files_t), (res_j, files_j) = got, ref
+        for a, b in zip(res_t, res_j):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(files_t, files_j):
+            assert a.dtype == b.dtype == np.uint8
+            np.testing.assert_array_equal(a, b)
