@@ -4,8 +4,9 @@
 Phases, one JSON line each:
 
 * ``env``       card, power limit, torch and CUDA versions;
-* ``build``     compile every kernel under ``spectavi_tpu_torch/csrc/``
-                (one ``nvcc`` per source, all started together);
+* ``build``     compile every source under ``spectavi_tpu_torch/csrc/``
+                (one ``nvcc`` per kernel and ``g++`` for the JPEG codec,
+                all started together);
 * ``render``    a 2048x3072 two-view pair rendered on the card (a
                 heightfield with seeded multi-scale noise texture, known
                 K and cameras), plus a 240x320 pair for the CPU check;
@@ -85,6 +86,12 @@ Phases, one JSON line each:
                 ``init="chain", loss="linear"``, host-form SIFT against
                 the CPU, and the codec's times at 2048x3072
                 (``phase_entry_points``);
+* ``jpeg``      the port's JPEG codec on the card's host against Pillow's
+                pinned digests (the castle file's pixels, the writer's
+                files), its seconds at 800x599 and 2048x3072, ex01 cold
+                in a subprocess on the rendered pair as RGB JPEG files,
+                identical to the byte to the array path on the decodes,
+                and ``run_sfm`` from the 10 views as JPEG (``phase_jpeg``);
 * ``distributed`` the mesh layer in worker processes (``--dist-worker``):
                 one NCCL rank and four gloo ranks, each with its own
                 launch counts (``dist_worker``);
@@ -93,8 +100,9 @@ Phases, one JSON line each:
                 its summed device time over the profiled warm run,
                 ``launches_sfm`` / ``run_ms_sfm`` of the 10-view run,
                 ``launches_surface`` of the unmasked step,
-                ``launches_entry_points`` of that phase's in-process runs
-                and ``launches_dist`` by job and rank.
+                ``launches_entry_points`` and ``launches_jpeg`` of those
+                phases' in-process runs and ``launches_dist`` by job and
+                rank.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 last the contract line ``{"ok": true, "device": {...}}``.  Any failure
@@ -1613,6 +1621,196 @@ def phase_entry_points(torch, np, pair, small, wrappers, smi):
     return launches
 
 
+# --- JPEG files -----------------------------------------------------
+
+# sha256 of Pillow's decode (Pillow 12.1.0 on libjpeg-turbo) of the
+# repository's castle_rect-01.jpg as a (599, 800, 3) uint8 array, and of
+# the files Pillow writes at its defaults for jpeg_digest_arrays();
+# tests/test_torch_jpeg.py holds the same digests against Pillow, so the
+# card's host build of the codec is held to Pillow without Pillow there
+CASTLE_JPG = os.path.join("artifacts", "round1", "castle_rect-01.jpg")
+JPEG_SHA256 = {
+    "castle_pixels": "ecc31d49fbaac7b7fda34ac6f9a64000bf6d22ff86320b5e1d842e5125be59c5",
+    "rgb_file": "928131061446e4a63b87b2ce7955d3961fd024264be8ffedbb2a9a5b3cd4ee50",
+    "gray_file": "97c62584869c7052181fc1e535f9387e1c0dc45792370df6a8315d19e3e4d6bb",
+}
+# the quality the rendered views are written at
+JPEG_QUALITY = 95
+
+
+def jpeg_digest_arrays(np):
+    """A fixed 97x131 RGB array from integer formulas (no random stream,
+    so every numpy gives the same bytes) and its green channel."""
+    y, x = np.mgrid[0:97, 0:131].astype(np.int64)
+    rgb = np.stack([(x * x * 7 + y * 13 + x * y * 3) % 256, (x * 5 + y * y * 11 + 17) % 256,
+                    ((x ^ y) * 9 + x * y) % 256], axis=-1).astype(np.uint8)
+    return rgb, rgb[..., 1].copy()
+
+
+def as_rgb(np, gray):
+    """A rendered gray view as RGB with distinct channels."""
+    g = gray.astype(np.int32)
+    return np.stack([g, 3 * g // 4 + 32, g // 2 + 100], axis=-1).astype(np.uint8)
+
+
+def phase_jpeg(torch, np, pair, wrappers, smi):
+    """ex01 and ``run_sfm`` from JPEG files that the port's codec writes
+    into a temporary directory under ``build/`` (removed when every gate
+    holds), on the card:
+
+    * the codec on the card's host: the castle file decodes to Pillow's
+      array and the writer's files of :func:`jpeg_digest_arrays` are
+      Pillow's (pinned sha256); decode and encode seconds at 800x599 and
+      at 2048x3072 (the rendered pair as RGB, quality 95), decode under
+      1 s;
+    * ex01 cold in a subprocess (``python3 -m ...`` with no ``--device``,
+      ``--cache``) on that pair: exit 0, ``rect-*.jpg`` written and read
+      back at the rectified shape, and its matches, keypoint counts,
+      inliers, cloud and ``rect-*`` files identical to the byte to
+      ``run_two_view_arrays`` on the codec's decoded arrays, whose pose
+      is inside the two-view gates; warm, ``run_two_view`` from the files
+      against ``run_two_view_arrays`` on the decodes, identical;
+    * ``run_sfm`` from the 10 rendered 480x640 views as RGB JPEG: every
+      pair ``success``, PnP init, ATE under 2% of the span.
+
+    Returns the launches of the in-process runs by wrapper."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from spectavi_tpu_torch.pipeline import io as pio
+    from spectavi_tpu_torch.pipeline.jpeg import read_jpeg, write_jpeg
+    from spectavi_tpu_torch.pipeline.sfm import run_sfm
+    from spectavi_tpu_torch.pipeline.two_view import run_two_view, run_two_view_arrays
+    from spectavi_tpu_torch.sfm import ate_rmse, camera_centers
+
+    grays, colors, K, (R_gt, t_gt) = pair
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    jp_dir = tempfile.mkdtemp(prefix="jpeg-", dir=os.path.join(ROOT, "build"))
+    d = lambda *p: os.path.join(jp_dir, *p)
+    sha = lambda b: hashlib.sha256(b).hexdigest()
+    for mod_ in wrappers.values():
+        mod_.launches = 0
+    out, bad = {"card": smi}, []
+
+    def gate(ok, name):
+        if not ok:
+            bad.append(name)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def gen():
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED)
+        return g
+
+    # the codec on this host against Pillow's pinned answers
+    data = file_bytes(os.path.join(ROOT, CASTLE_JPG))
+    castle, castle_dec = timed(lambda: read_jpeg(data))
+    _, castle_enc = timed(lambda: write_jpeg(d("castle.jpg"), castle))
+    rgb_s, gray_s = jpeg_digest_arrays(np)
+    write_jpeg(d("digest_rgb.jpg"), rgb_s)
+    write_jpeg(d("digest_gray.jpg"), gray_s)
+    digests = {"castle_pixels": sha(castle.tobytes()),
+               "rgb_file": sha(file_bytes(d("digest_rgb.jpg"))),
+               "gray_file": sha(file_bytes(d("digest_gray.jpg")))}
+    for name, value in digests.items():
+        gate(value == JPEG_SHA256[name], f"{name}_digest")
+    gate(castle.shape == (599, 800, 3), "castle_shape")
+
+    # the rendered pair as RGB files at 2048x3072
+    rgbs = [as_rgb(np, c) for c in colors]
+    paths = [d(f"im{i}.jpg") for i in (0, 1)]
+    kfile = d("K.txt")
+    np.savetxt(kfile, K)
+    _, enc_rgb = timed(lambda: write_jpeg(paths[0], rgbs[0], quality=JPEG_QUALITY))
+    write_jpeg(paths[1], rgbs[1], quality=JPEG_QUALITY)
+    data = file_bytes(paths[0])
+    dec, dec_rgb = timed(lambda: read_jpeg(data))
+    err = float(np.abs(dec.astype(np.int16) - rgbs[0]).mean())
+    gate(dec.shape == rgbs[0].shape and same_bytes(np, dec, read_jpeg(data)) and err < 3.0,
+         "decode_rgb")
+    gate(dec_rgb < 1.0, "decode_rgb_under_1s")
+    out["codec"] = {"digests": digests, "castle_shape": list(castle.shape),
+                    "castle_decode_s": castle_dec, "castle_encode_s": castle_enc,
+                    "shape": list(rgbs[0].shape), "quality": JPEG_QUALITY,
+                    "encode_rgb_s": enc_rgb, "decode_rgb_s": dec_rgb, "rgb_bytes": len(data),
+                    "mean_abs_err": err}
+
+    # ex01 cold, as a user runs it, against the array path on the decodes
+    cli_s, _ = run_cli("spectavi_tpu_torch.pipeline.ex01",
+                       [*paths, kfile, "--outdir", d("ex01_cli"), "--seed", str(SEED), "--cache"])
+    names = ("sparse_inliers.ply", "rect-im0.jpg", "rect-im1.jpg", "metrics.json", "cache.npz")
+    gate(all(os.path.getsize(d("ex01_cli", n)) > 0 for n in names), "ex01_cli_outputs")
+    # warm, without outputs: the file path against the arrays it decodes
+    pio._decode.cache_clear()
+    files, files_s = timed(lambda: run_two_view(paths, kfile, outdir=None, generator=gen(),
+                                                quiet=True))
+    dgrays = [pio.imread(p, dtype="float32", force_grayscale=True) for p in paths]
+    dcolors = [pio.imread(p, dtype="uint8") for p in paths]
+    bare, bare_s = timed(lambda: run_two_view_arrays(dgrays, dcolors, np.loadtxt(kfile),
+                                                     generator=gen(), quiet=True))
+    gate(all(same_bytes(np, files[k], bare[k]) for k in ("matches", "points", "rectified"))
+         and same_bytes(np, files["ransac"]["essential"], bare["ransac"]["essential"]),
+         "files_vs_arrays")
+    arrays = run_two_view_arrays(dgrays, dcolors, np.loadtxt(kfile), image_names=paths,
+                                 outdir=d("arrays"), cache=True, generator=gen(), quiet=True)
+    with open(d("ex01_cli", "metrics.json")) as f:
+        cli_m = json.load(f)
+    cache = np.load(d("ex01_cli", "cache.npz"))
+    same = {"matches": same_bytes(np, cache["xd"], arrays["matches"][0])
+            and same_bytes(np, cache["yd"], arrays["matches"][1])}
+    m = arrays["metrics"]
+    for key in ("keypoints", "n_matches", "n_inliers"):
+        same[key] = cli_m[key] == m[key]
+    for name in names[:3]:
+        same[name] = file_bytes(d("ex01_cli", name)) == file_bytes(d("arrays", name))
+    gate(all(same.values()), "cli_vs_arrays")
+    rect = [pio.imread(d("ex01_cli", n), dtype="uint8") for n in names[1:3]]
+    gate(all(r.shape == a.shape and r.ndim == 3
+             for r, a in zip(rect, arrays["rectified"][:2])), "rect_read_back")
+    try:
+        rot, t_err = check_two_view(np, arrays, R_gt, t_gt)
+    except AssertionError as e:
+        rot = t_err = None
+        gate(False, f"two_view: {e}")
+    out["ex01"] = {"cold_cli_s": cli_s, "warm_files_s": files_s, "warm_arrays_s": bare_s,
+                   "identical": same,
+                   "keypoints": m["keypoints"], "n_matches": m["n_matches"],
+                   "n_inliers": m["n_inliers"], "consensus": m["consensus"],
+                   "rotation_err_deg": rot, "translation_err_deg": t_err,
+                   "rect_shape": list(rect[0].shape)}
+
+    # run_sfm from the 10 views as RGB JPEG
+    vgrays, vcolors, vK, poses = render_views(SFM_VIEWS, SFM_H, SFM_W, "cuda", SFM_TEX)
+    gt_C = np.array([C for _, _, C in poses])
+    vpaths = [d(f"v{i:02d}.jpg") for i in range(SFM_VIEWS)]
+    for p, c in zip(vpaths, vcolors):
+        write_jpeg(p, as_rgb(np, c), quality=JPEG_QUALITY)
+    np.savetxt(d("Kv.txt"), vK)
+    res, secs = timed(lambda: run_sfm(vpaths, d("Kv.txt"), generator=gen(), quiet=True))
+    share = ate_rmse(camera_centers(res["cams"]), gt_C) / np.ptp(gt_C, axis=0).max()
+    sm = res["metrics"]
+    gate(all(p.get("success") for p in sm["pairs"]) and sm["init_used"] == "pnp"
+         and share < 0.02, "run_sfm")
+    out["run_sfm"] = {"s": secs, "pairs": len(sm["pairs"]), "init_used": sm["init_used"],
+                      "pair_backend": sm["pair_backend"], "tracks": sm["n_tracks"],
+                      "ate_share": share}
+
+    launches = {name: mod_.launches for name, mod_ in wrappers.items()}
+    gate(all(v > 0 for v in launches.values()), "launches")
+    emit("jpeg", launches=launches, failed=bad, **out)
+    if bad:
+        raise AssertionError(f"the jpeg phase failed on {bad} (files in {jp_dir})")
+    shutil.rmtree(jp_dir)
+    return launches
+
+
 # --- distribution over torch.distributed ----------------------------
 
 # the distributed phase's jobs: backend, ranks, matching meshes (n_pairs, n_blocks).
@@ -1932,11 +2130,12 @@ def main(argv):
          device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    reports = _build.build(verbose="--ptxas" in argv)
+    reports = _build.build(_build.KERNELS + _build.HOST_SOURCES, verbose="--ptxas" in argv)
     emit("build", seconds=time.perf_counter() - t0, built=sorted(reports))
     if "--ptxas" in argv:
         for name, rep in reports.items():
-            print(f"--- ptxas {name}\n{rep}", flush=True)
+            if name in _build.KERNELS:
+                print(f"--- ptxas {name}\n{rep}", flush=True)
 
     t0 = time.perf_counter()
     grays, colors, K, (R_gt, t_gt) = render_pair(H, W, "cuda", TEX)
@@ -2059,6 +2258,10 @@ def main(argv):
     launches_entry = phase_entry_points(torch, np, (grays, colors, K, (R_gt, t_gt)), small,
                                         wrappers, smi)
     phase_s["entry_points"] = time.perf_counter() - t0
+    # ex01 and run_sfm from JPEG files, through the port's own codec
+    t0 = time.perf_counter()
+    launches_jpeg = phase_jpeg(torch, np, (grays, colors, K, (R_gt, t_gt)), wrappers, smi)
+    phase_s["jpeg"] = time.perf_counter() - t0
     # the mesh layer in worker processes, each counting its own launches
     t0 = time.perf_counter()
     launches_dist = phase_distributed(torch, np, warm_sfm, sfm_K, step_capture, smi)
@@ -2082,6 +2285,7 @@ def main(argv):
             "run_ms": run_ms[name], "launches_sfm": launches_sfm[name],
             "run_ms_sfm": run_ms_sfm[name], "launches_surface": launches_surface[name],
             "launches_entry_points": launches_entry[name],
+            "launches_jpeg": launches_jpeg[name],
             # by rank, in each job of the distributed phase
             "launches_dist": {job: counts[name] for job, counts in launches_dist.items()},
         })

@@ -3,14 +3,23 @@
 The port's own copy of ``spectavi_tpu/pipeline/io.py``: imread with max
 normalization, BT.601 grayscale, ``Timer``, metrics JSON, ASCII PLY.
 
-PNG goes through a codec of its own (numpy and the standard library's
-``zlib``), so the pipelines run from PNG files on machines without
-Pillow: :func:`imread` reads 8-bit non-interlaced PNG of colour types
-0, 2, 3, 4 and 6 to exactly the array ``np.asarray(PIL.Image.open(f))``
-gives (palette images as their indices), and :func:`imsave` writes
-8-bit gray, gray + alpha, RGB and RGBA PNG.  Other formats, and the PNG
-variants the codec does not read (other bit depths, interlaced), go
-through Pillow.
+PNG and baseline JPEG go through codecs of the port's own, so the
+pipelines run from PNG and JPEG files on machines without Pillow:
+
+* PNG (numpy and the standard library's ``zlib``): :func:`imread` reads
+  8-bit non-interlaced PNG of colour types 0, 2, 3, 4 and 6 to exactly
+  the array ``np.asarray(PIL.Image.open(f))`` gives (palette images as
+  their indices), and :func:`imsave` writes 8-bit gray, gray + alpha,
+  RGB and RGBA PNG.
+* JPEG (host C++, :mod:`spectavi_tpu_torch.pipeline.jpeg`, compiled at
+  first use): :func:`imread` reads sequential Huffman JPEG at 8 bits,
+  gray or colour sampled 4:4:4, 4:2:2 or 4:2:0, to exactly Pillow's
+  array, and :func:`imsave` writes the ``.jpg`` / ``.jpeg`` file that
+  Pillow writes (baseline, quality 75, 4:2:0 for RGB).
+
+Other formats, and the variants the codecs do not read (PNG of other bit
+depths or interlaced; progressive, arithmetic-coded, lossless, 12-bit or
+CMYK JPEG, or other sampling factors), go through Pillow.
 """
 
 from __future__ import annotations
@@ -23,6 +32,8 @@ import zlib
 
 import numpy as np
 from numpy.lib.stride_tricks import as_strided
+
+from spectavi_tpu_torch.pipeline.jpeg import read_jpeg, write_jpeg
 
 
 class Timer:
@@ -206,8 +217,8 @@ def _pillow():
         from PIL import Image
     except ImportError as e:
         raise ImportError(
-            "this image format needs Pillow, which is not installed; 8-bit "
-            "non-interlaced PNG is read and written without it") from e
+            "this image format needs Pillow, which is not installed; baseline "
+            "JPEG and 8-bit non-interlaced PNG are read and written without it") from e
     return Image
 
 
@@ -215,10 +226,15 @@ def _pillow():
 def _decode(filename, mtime):
     """Decoded raw pixel array, cached: the pipeline reads each image
     for SIFT (grayscale), rectification (color) and PLY colors.  PNG
-    that the codec reads never goes to Pillow."""
+    and JPEG that the codecs read never go to Pillow."""
     with open(filename, "rb") as f:
         data = f.read()
-    im = _read_png(data) if data[:8] == PNG_SIGNATURE else None
+    if data[:8] == PNG_SIGNATURE:
+        im = _read_png(data)
+    elif data[:2] == b"\xff\xd8":
+        im = read_jpeg(data)
+    else:
+        im = None
     if im is None:
         im = np.asarray(_pillow().open(filename))
     im.flags.writeable = False
@@ -256,10 +272,15 @@ def _write_png(filename, arr):
 
 
 def imsave(filename, arr):
-    """Write an 8-bit image: ``.png`` through the codec (gray, gray +
-    alpha, RGB or RGBA), any other format through Pillow."""
-    if filename.lower().endswith(".png"):
+    """Write an 8-bit image: ``.png`` through the PNG codec (gray, gray +
+    alpha, RGB or RGBA), ``.jpg`` / ``.jpeg`` through the JPEG codec
+    (gray or RGB, as Pillow writes it), any other format through
+    Pillow."""
+    name = filename.lower()
+    if name.endswith(".png"):
         _write_png(filename, arr)
+    elif name.endswith((".jpg", ".jpeg")):
+        write_jpeg(filename, arr)
     else:
         _pillow().fromarray(np.asarray(arr)).save(filename)
 

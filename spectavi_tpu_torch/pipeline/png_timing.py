@@ -1,5 +1,5 @@
-"""Time the port's PNG codec against Pillow on the host, at the two-view
-pipeline's image size.
+"""Time the port's PNG and JPEG codecs against Pillow on the host, at the
+two-view pipeline's image size.
 
     python -m spectavi_tpu_torch.pipeline.png_timing [--size 2048 3072] [--repeat 3]
 
@@ -19,7 +19,12 @@ rendered view is).  For each, the best of ``--repeat`` runs of:
   its slowest) and of the codec's file (Sub rows, the codec's
   row-at-a-time path);
 * ``step5_write``: both ``rect-*`` files of a gray pair, the codec
-  against Pillow.
+  against Pillow;
+* ``jpeg``: for gray and RGB with pixel noise and the smooth gray, at
+  quality 75 (Pillow's default) and 95, the JPEG writer against Pillow's
+  ``Image.save`` (the files must be the same bytes) and the JPEG decoder
+  against Pillow's decode of that file (the arrays must be equal), with
+  the file's size.
 
 Prints one JSON line.
 """
@@ -38,6 +43,7 @@ import zlib
 import numpy as np
 
 from spectavi_tpu_torch.pipeline import io as pio
+from spectavi_tpu_torch.pipeline.jpeg import read_jpeg, write_jpeg
 
 
 def texture(rng, h, w, pixel_noise=2.0):
@@ -127,7 +133,28 @@ def main(argv=None):
         out["step5_write_s"] = {
             "codec": best(lambda: [pio.imsave(codec_f, r) for r in pair], args.repeat),
             "pillow": best(lambda: [Image.fromarray(r).save(pil_f) for r in pair], args.repeat)}
+        out["jpeg"] = jpeg_times(Image, images, tmp, args.repeat)
     print(json.dumps(out))
+
+
+def jpeg_times(Image, images, tmp, repeat):
+    """The JPEG codec against Pillow: ``{image: {quality: {write_s,
+    read_s, bytes}}}``, each file and array checked equal to Pillow's."""
+    codec_f, pil_f = os.path.join(tmp, "codec.jpg"), os.path.join(tmp, "pillow.jpg")
+    out = {}
+    for name, arr in images.items():
+        out[name] = {}
+        for q in (75, 95):
+            write = {"codec": best(lambda: write_jpeg(codec_f, arr, quality=q), repeat),
+                     "pillow": best(lambda: Image.fromarray(arr).save(pil_f, quality=q), repeat)}
+            data = open(codec_f, "rb").read()
+            assert data == open(pil_f, "rb").read()
+            ref = np.asarray(Image.open(pil_f))
+            assert np.array_equal(read_jpeg(data), ref)
+            read = {"codec": best(lambda: read_jpeg(open(codec_f, "rb").read()), repeat),
+                    "pillow": best(lambda: np.asarray(Image.open(pil_f)), repeat)}
+            out[name][q] = {"write_s": write, "read_s": read, "bytes": len(data)}
+    return out
 
 
 if __name__ == "__main__":

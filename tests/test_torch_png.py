@@ -10,11 +10,11 @@
   repository's own PNGs agree too.
 * The writer (``imsave``): gray, gray + alpha, RGB and RGBA files that
   Pillow reads back to the same pixels.
-* The variants the codec does not read (16-bit, interlaced, JPEG) go
-  to Pillow; malformed files raise.
+* The variants the codecs do not read (16-bit, interlaced, progressive
+  JPEG) go to Pillow; malformed files raise.
 * With Pillow blocked (``sys.modules["PIL"] = None``, in a subprocess):
-  ``imread`` of a PNG works and of a JPEG raises an ``ImportError`` that
-  names Pillow; ex01 and ex02 run from PNG files on the CPU and write
+  ``imread`` of a PNG and of a baseline JPEG works, and of a progressive
+  JPEG raises an ``ImportError`` that names Pillow; ex01 and ex02 run from PNG files on the CPU and write
   their outputs; ex01 ``--plots`` with matplotlib blocked raises before
   SIFT runs.
 """
@@ -175,18 +175,22 @@ def _adam7(arr):
             + _chunk(b"IEND", b""))
 
 
-@pytest.mark.parametrize("variant", ["16-bit", "interlaced", "jpeg"])
+@pytest.mark.parametrize("variant", ["16-bit", "interlaced", "progressive-jpeg"])
 def test_other_variants_go_to_pillow(tmp_path, variant):
+    from spectavi_tpu_torch.pipeline.jpeg import read_jpeg
+
     rng = np.random.default_rng(3)
     arr = rng.integers(0, 256, (21, 30), dtype=np.uint8)
-    path = tmp_path / ("im.jpg" if variant == "jpeg" else "im.png")
+    path = tmp_path / ("im.jpg" if variant == "progressive-jpeg" else "im.png")
     if variant == "16-bit":
         Image.fromarray(arr.astype(np.uint16) * 257).save(path)
     elif variant == "interlaced":
         path.write_bytes(_adam7(arr))
     else:
-        Image.fromarray(arr).save(path, quality=90)
-    if variant != "jpeg":
+        Image.fromarray(arr).save(path, quality=90, progressive=True)
+    if variant == "progressive-jpeg":
+        assert read_jpeg(path.read_bytes()) is None
+    else:
         assert pio._read_png(path.read_bytes()) is None
     got = _same_as_pillow(path)
     if variant == "interlaced":
@@ -249,19 +253,22 @@ def views(tmp_path_factory):
 
 def test_imread_without_pillow(views, tmp_path):
     _, paths, _ = views
-    jpg = tmp_path / "im.jpg"
-    Image.fromarray(np.zeros((8, 8), np.uint8)).save(jpg)
+    jpg, progressive = tmp_path / "im.jpg", tmp_path / "progressive.jpg"
+    Image.fromarray(np.full((8, 12), 77, np.uint8)).save(jpg)
+    Image.fromarray(np.zeros((8, 8), np.uint8)).save(progressive, progressive=True)
     code = (
         "import numpy as np\n"
         "from spectavi_tpu_torch.pipeline.io import imread\n"
         f"print(imread({paths[0]!r}, dtype='uint8').shape)\n"
+        f"print('baseline', imread({str(jpg)!r}, dtype='uint8').tolist())\n"
         "try:\n"
-        f"    imread({str(jpg)!r})\n"
+        f"    imread({str(progressive)!r})\n"
         "except ImportError as e:\n"
         "    print('ImportError:', e)\n")
     out = _run_blocked(code)
     assert out.returncode == 0, out.stderr
     assert "(120, 160)" in out.stdout
+    assert f"baseline {np.asarray(Image.open(jpg)).tolist()}" in out.stdout
     assert "ImportError:" in out.stdout and "Pillow" in out.stdout
 
 
