@@ -291,8 +291,7 @@ def render_views(n, h, w, device, tex_shape, seed=SEED):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     height, texture_at = make_scene(rng, gen, device, tex_shape)
-    f = 1.1 * w
-    K = np.array([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1.0]])
+    K = camera_K(np, h, w)
     grays, colors, poses = [], [], []
     for i in range(n):
         R, t, C = arc_pose(i, n)
@@ -305,13 +304,24 @@ def render_views(n, h, w, device, tex_shape, seed=SEED):
     return grays, colors, K, poses
 
 
+def camera_K(np, h, w):
+    """The rendered views' intrinsics at ``h`` x ``w``."""
+    f = 1.1 * w
+    return np.array([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1.0]])
+
+
+def relative_pose(poses):
+    """``(R, t)`` of the second of two arc poses relative to the first."""
+    (R0, t0, _), (R1, t1, _) = poses[:2]
+    R01 = R1 @ R0.T
+    return R01, t1 - R01 @ t0
+
+
 def render_pair(h, w, device, tex_shape):
     """Two views on the arc: ``(grays, colors, K, (R1, t1) of view 1
     relative to view 0)``."""
     grays, colors, K, poses = render_views(2, h, w, device, tex_shape)
-    (R0, t0, _), (R1, t1, _) = poses
-    R01 = R1 @ R0.T
-    return grays, colors, K, (R01, t1 - R01 @ t0)
+    return grays, colors, K, relative_pose(poses)
 
 
 def tiny_views(device, nviews=3, h=120, w=160):
@@ -1653,6 +1663,30 @@ def as_rgb(np, gray):
     return np.stack([g, 3 * g // 4 + 32, g // 2 + 100], axis=-1).astype(np.uint8)
 
 
+def cli_vs_arrays(np, cli_dir, arrays_dir, arrays, names):
+    """ex01's CLI outputs in ``cli_dir`` against ``run_two_view_arrays``'
+    result ``arrays`` and files in ``arrays_dir``: ``{what: identical}``
+    for the matches, keypoint counts, match and inlier counts and the
+    files ``names[:3]`` (the cloud and both ``rect-*``), and the
+    ``rect-*`` files' shapes read back as they match the rectified
+    arrays'."""
+    from spectavi_tpu_torch.pipeline import io as pio
+
+    with open(os.path.join(cli_dir, "metrics.json")) as f:
+        cli_m = json.load(f)
+    cache = np.load(os.path.join(cli_dir, "cache.npz"))
+    same = {"matches": same_bytes(np, cache["xd"], arrays["matches"][0])
+            and same_bytes(np, cache["yd"], arrays["matches"][1])}
+    for key in ("keypoints", "n_matches", "n_inliers"):
+        same[key] = cli_m[key] == arrays["metrics"][key]
+    for name in names[:3]:
+        same[name] = (file_bytes(os.path.join(cli_dir, name))
+                      == file_bytes(os.path.join(arrays_dir, name)))
+    rect = [pio.imread(os.path.join(cli_dir, n), dtype="uint8") for n in names[1:3]]
+    rect_ok = all(r.shape == a.shape and r.ndim == 3 for r, a in zip(rect, arrays["rectified"][:2]))
+    return same, rect_ok, list(rect[0].shape)
+
+
 def phase_jpeg(torch, np, pair, wrappers, smi):
     """ex01 and ``run_sfm`` from JPEG files that the port's codec writes
     into a temporary directory under ``build/`` (removed when every gate
@@ -1760,20 +1794,10 @@ def phase_jpeg(torch, np, pair, wrappers, smi):
          "files_vs_arrays")
     arrays = run_two_view_arrays(dgrays, dcolors, np.loadtxt(kfile), image_names=paths,
                                  outdir=d("arrays"), cache=True, generator=gen(), quiet=True)
-    with open(d("ex01_cli", "metrics.json")) as f:
-        cli_m = json.load(f)
-    cache = np.load(d("ex01_cli", "cache.npz"))
-    same = {"matches": same_bytes(np, cache["xd"], arrays["matches"][0])
-            and same_bytes(np, cache["yd"], arrays["matches"][1])}
+    same, rect_ok, rect_shape = cli_vs_arrays(np, d("ex01_cli"), d("arrays"), arrays, names)
     m = arrays["metrics"]
-    for key in ("keypoints", "n_matches", "n_inliers"):
-        same[key] = cli_m[key] == m[key]
-    for name in names[:3]:
-        same[name] = file_bytes(d("ex01_cli", name)) == file_bytes(d("arrays", name))
     gate(all(same.values()), "cli_vs_arrays")
-    rect = [pio.imread(d("ex01_cli", n), dtype="uint8") for n in names[1:3]]
-    gate(all(r.shape == a.shape and r.ndim == 3
-             for r, a in zip(rect, arrays["rectified"][:2])), "rect_read_back")
+    gate(rect_ok, "rect_read_back")
     try:
         rot, t_err = check_two_view(np, arrays, R_gt, t_gt)
     except AssertionError as e:
@@ -1784,7 +1808,7 @@ def phase_jpeg(torch, np, pair, wrappers, smi):
                    "keypoints": m["keypoints"], "n_matches": m["n_matches"],
                    "n_inliers": m["n_inliers"], "consensus": m["consensus"],
                    "rotation_err_deg": rot, "translation_err_deg": t_err,
-                   "rect_shape": list(rect[0].shape)}
+                   "rect_shape": rect_shape}
 
     # run_sfm from the 10 views as RGB JPEG
     vgrays, vcolors, vK, poses = render_views(SFM_VIEWS, SFM_H, SFM_W, "cuda", SFM_TEX)
@@ -1807,6 +1831,129 @@ def phase_jpeg(torch, np, pair, wrappers, smi):
     emit("jpeg", launches=launches, failed=bad, **out)
     if bad:
         raise AssertionError(f"the jpeg phase failed on {bad} (files in {jp_dir})")
+    shutil.rmtree(jp_dir)
+    return launches
+
+
+# --- progressive JPEG and other sampling factors ---------------------
+
+# the files of tests/data/jpeg (written by Pillow, which the card's
+# machine lacks, and regenerated by tests/test_torch_jpeg_progressive.py)
+# and the sha256 of Pillow's decode of each (Pillow 12.1.0 on
+# libjpeg-turbo 3.1.3), which the codec must give on the card's host
+JPEG_FIXTURES = os.path.join("tests", "data", "jpeg")
+JPEG_FIXTURE_SHA256 = {
+    "castle-progressive.jpg": "07daa172b1e009ff4d601223f4ba1b025bda349cf058ea5f2594253dd5a0a5cb",
+    "digest-gray-progressive-rst3.jpg": "979d44478f24f09e304e81e11b1c0fc2d327919aecfa50183bbc6d827eafcc37",
+    "digest-rgb-411.jpg": "4d0d60279e998190c09399bc666516d71bf3451e05d2ce6b7fa9f4b363235451",
+    "digest-rgb-440-progressive.jpg": "0ba416f831ca538ff4b749402cc69e5b9a36b6c50056ce80d50799600d94a1e4",
+    "digest-rgb-440.jpg": "f01c5c6fd9c76bb8a5d1b77cc1fe17f850b50aa2f921c1cabefa6b47c85b2089",
+    "digest-rgb-progressive-444.jpg": "e0db1599f169c4e3f5fb16874005a5b06f3582b112b2a0e1073576c9a694038a",
+    "digest-rgb-progressive-rst3.jpg": "5ef507b0f3c0b8a1344e88b2bb1fa2cea7f93da5237e1654413e557fdbd43655",
+    "pair0.jpg": "31323d6aeac5856d3e928cb1b03738eb2c7b2010140642177d9dc0c271f01b81",
+    "pair1.jpg": "d78c886718a247c36af126eaa7fb44bb0f223b66615d1a4eda077babb742290d",
+}
+
+
+def phase_jpeg_progressive(torch, np, wrappers, smi):
+    """ex01 from progressive JPEG, as users run it, on the card:
+
+    * the codec on the card's host decodes every fixture (the rendered
+      2048x3072 pair and the castle file progressive; the digest arrays
+      progressive with restarts and at 4:4:4; SOF-patched 4:4:0, 4:1:1
+      and a progressive 4:4:0) to Pillow's pinned digest; decode seconds
+      of the progressive pair image and castle file beside the baseline
+      files of the same pixels (the codec's writer at quality 90 and
+      the repository's castle file), the 2048x3072 decode under 1 s;
+    * ex01 cold in a subprocess (``python3 -m ...`` with no ``--device``,
+      ``--cache``) on the progressive pair and its ``K.txt``: exit 0,
+      ``rect-*.jpg`` read back at the rectified shape, its matches,
+      keypoint counts, inliers, cloud and ``rect-*`` files identical to
+      the byte to ``run_two_view_arrays`` on the codec's decoded arrays,
+      whose pose is inside the two-view gates against ``pose.txt``.
+
+    Returns the launches of the in-process run by wrapper."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from spectavi_tpu_torch.pipeline import io as pio
+    from spectavi_tpu_torch.pipeline.jpeg import read_jpeg, write_jpeg
+    from spectavi_tpu_torch.pipeline.two_view import run_two_view_arrays
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    jp_dir = tempfile.mkdtemp(prefix="jpeg-progressive-", dir=os.path.join(ROOT, "build"))
+    d = lambda *p: os.path.join(jp_dir, *p)
+    fx = lambda *p: os.path.join(ROOT, JPEG_FIXTURES, *p)
+    for mod_ in wrappers.values():
+        mod_.launches = 0
+    out, bad = {"card": smi}, []
+
+    def gate(ok, name):
+        if not ok:
+            bad.append(name)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        res = fn()
+        return res, time.perf_counter() - t0
+
+    # every fixture against Pillow's pinned decode
+    decoded, seconds = {}, {}
+    for name, want in JPEG_FIXTURE_SHA256.items():
+        data = file_bytes(fx(name))
+        decoded[name], seconds[name] = timed(lambda: read_jpeg(data))
+        gate(decoded[name] is not None
+             and hashlib.sha256(decoded[name].tobytes()).hexdigest() == want, f"{name}_digest")
+    # the same pixels as baseline files, decoded in this run
+    write_jpeg(d("pair0-baseline.jpg"), decoded["pair0.jpg"], quality=90)
+    data = file_bytes(d("pair0-baseline.jpg"))
+    _, base_pair_s = timed(lambda: read_jpeg(data))
+    data = file_bytes(os.path.join(ROOT, CASTLE_JPG))
+    _, base_castle_s = timed(lambda: read_jpeg(data))
+    gate(seconds["pair0.jpg"] < 1.0, "decode_progressive_under_1s")
+    out["codec"] = {"decode_s": seconds, "shapes": {k: list(v.shape) for k, v in decoded.items()},
+                    "pair_bytes": os.path.getsize(fx("pair0.jpg")),
+                    "baseline_pair_decode_s": base_pair_s,
+                    "baseline_castle_decode_s": base_castle_s}
+
+    # ex01 cold, as a user runs it, against the array path on the decodes
+    paths, kfile = [fx("pair0.jpg"), fx("pair1.jpg")], fx("K.txt")
+    cli_s, _ = run_cli("spectavi_tpu_torch.pipeline.ex01",
+                       [*paths, kfile, "--outdir", d("ex01_cli"), "--seed", str(SEED), "--cache"])
+    names = ("sparse_inliers.ply", "rect-pair0.jpg", "rect-pair1.jpg", "metrics.json",
+             "cache.npz")
+    gate(all(os.path.getsize(d("ex01_cli", n)) > 0 for n in names), "ex01_cli_outputs")
+    pio._decode.cache_clear()
+    dgrays = [pio.imread(p, dtype="float32", force_grayscale=True) for p in paths]
+    dcolors = [pio.imread(p, dtype="uint8") for p in paths]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    arrays, arrays_s = timed(lambda: run_two_view_arrays(
+        dgrays, dcolors, np.loadtxt(kfile), image_names=paths, outdir=d("arrays"), cache=True,
+        generator=gen, quiet=True))
+    same, rect_ok, rect_shape = cli_vs_arrays(np, d("ex01_cli"), d("arrays"), arrays, names)
+    m = arrays["metrics"]
+    gate(all(same.values()), "cli_vs_arrays")
+    gate(rect_ok, "rect_read_back")
+    pose = np.loadtxt(fx("pose.txt"))
+    try:
+        rot, t_err = check_two_view(np, arrays, pose[:, :3], pose[:, 3])
+    except AssertionError as e:
+        rot = t_err = None
+        gate(False, f"two_view: {e}")
+    gate(m["consensus"] >= 0.8, "consensus")
+    out["ex01"] = {"cold_cli_s": cli_s, "arrays_s": arrays_s, "identical": same,
+                   "keypoints": m["keypoints"], "n_matches": m["n_matches"],
+                   "n_inliers": m["n_inliers"], "consensus": m["consensus"],
+                   "rotation_err_deg": rot, "translation_err_deg": t_err,
+                   "rect_shape": rect_shape}
+
+    launches = {name: mod_.launches for name, mod_ in wrappers.items()}
+    gate(all(v > 0 for v in launches.values()), "launches")
+    emit("jpeg_progressive", launches=launches, failed=bad, **out)
+    if bad:
+        raise AssertionError(f"the jpeg_progressive phase failed on {bad} (files in {jp_dir})")
     shutil.rmtree(jp_dir)
     return launches
 
@@ -2262,6 +2409,10 @@ def main(argv):
     t0 = time.perf_counter()
     launches_jpeg = phase_jpeg(torch, np, (grays, colors, K, (R_gt, t_gt)), wrappers, smi)
     phase_s["jpeg"] = time.perf_counter() - t0
+    # ex01 from progressive JPEG; the codec on every sampling factor
+    t0 = time.perf_counter()
+    launches_progressive = phase_jpeg_progressive(torch, np, wrappers, smi)
+    phase_s["jpeg_progressive"] = time.perf_counter() - t0
     # the mesh layer in worker processes, each counting its own launches
     t0 = time.perf_counter()
     launches_dist = phase_distributed(torch, np, warm_sfm, sfm_K, step_capture, smi)
@@ -2286,6 +2437,7 @@ def main(argv):
             "run_ms_sfm": run_ms_sfm[name], "launches_surface": launches_surface[name],
             "launches_entry_points": launches_entry[name],
             "launches_jpeg": launches_jpeg[name],
+            "launches_jpeg_progressive": launches_progressive[name],
             # by rank, in each job of the distributed phase
             "launches_dist": {job: counts[name] for job, counts in launches_dist.items()},
         })

@@ -1,16 +1,21 @@
-// Baseline JPEG codec for the host, with a plain C interface for ctypes.
+// JPEG codec for the host, with a plain C interface for ctypes.
 //
-// The decoder reads sequential Huffman JPEG at 8 bits (SOF0 and SOF1)
-// with 1 component (gray) or 3 (YCbCr or RGB), sampled 4:4:4, 4:2:2 or
-// 4:2:0, and gives exactly the pixels that libjpeg-turbo gives with its
-// default decompression settings: the integer "islow" inverse DCT, fancy
-// (triangle) chroma upsampling and the fixed-point YCbCr->RGB tables.
-// All of that is integer arithmetic, so it is reproduced here step for
-// step.  Every other kind of JPEG (progressive, arithmetic coding,
-// lossless, 12-bit, 2 or 4 components, other sampling factors) is
-// reported as "not mine" for the caller to hand to another decoder.  A
-// malformed file is reported as an error; every read of the input is
-// bounds-checked.
+// The decoder reads Huffman JPEG at 8 bits, sequential (SOF0 and SOF1)
+// or progressive (SOF2), with 1 component (gray) or 3 (YCbCr or RGB) at
+// any integral sampling factors (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, ...),
+// and gives exactly the pixels that libjpeg-turbo gives with its default
+// decompression settings: the integer "islow" inverse DCT, jdsample.c's
+// upsampling (fancy h2v1, h1v2 and h2v2, else sample replication) and the
+// fixed-point YCbCr->RGB tables.  All of that is integer arithmetic, so
+// it is reproduced here step for step.  A progressive file is read scan
+// by scan into whole-image coefficient buffers (jdphuff.c's four scan
+// kinds) and output after its last scan.  Reported as "not mine", for
+// the caller to hand to another decoder: arithmetic coding, lossless,
+// hierarchical and 12-bit JPEG, 2 or 4 components (CMYK, YCCK),
+// non-integral sampling factors, and progressive files whose scans leave
+// a coefficient unrefined (libjpeg-turbo would apply its block smoothing
+// to them).  A malformed file is reported as an error; every read of the
+// input is bounds-checked.
 //
 // The encoder writes what libjpeg-turbo writes with its defaults (as
 // Pillow's ``Image.save`` calls it): the JFIF APP0 header, baseline
@@ -18,6 +23,7 @@
 // Annex K Huffman tables, 4:2:0 for RGB and one component for gray, the
 // integer forward DCT and libjpeg-turbo's reciprocal quantizer.
 
+#include <climits>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -238,10 +244,14 @@ struct Coefs {
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
+  int hr = 1, vr = 1;   // the frame's largest factors over this one's
   int w = 0, ht = 0;    // samples (downsampled size)
   int bw = 0, bh = 0;   // allocated block grid (whole MCUs)
   bool scanned = false;
-  int quant[64];        // latched at its scan, natural order
+  int quant[64];        // latched at its first scan, natural order
+  // jdphuff.c's coef_bits: by zigzag index, -1 before any scan of the
+  // coefficient, then the Al of its last scan
+  int coef_bits[64];
   Coefs coef;
   std::vector<uint8_t> plane;  // bw*8 x bh*8 samples
 };
@@ -336,6 +346,13 @@ struct Decoder {
   int adobe_transform = 0;
   int64_t out_len = 0;
 
+  bool progressive = false;
+  // the scan being decoded: its kind, band Ss..Se, bit position Al, and
+  // the blocks left in an end-of-band run (progressive AC scans)
+  enum Kind { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
+  Kind kind = kSequential;
+  int ss = 0, se = 63, al = 0, eobrun = 0;
+
   Decoder(const uint8_t* d_, size_t n_) : d(d_), n(n_) {}
 
   unsigned u8() {
@@ -393,12 +410,16 @@ struct Decoder {
       if (c.tq > 3) bad("JPEG quantization table index above 3");
       hmax = c.h > hmax ? c.h : hmax;
       vmax = c.v > vmax ? c.v : vmax;
+      for (int k = 0; k < 64; k++) c.coef_bits[k] = -1;
     }
-    if (nc == 3) {
-      bool chroma11 = comp[1].h == 1 && comp[1].v == 1 && comp[2].h == 1 && comp[2].v == 1;
-      int h0 = comp[0].h, v0 = comp[0].v;
-      bool luma = (h0 == 1 && v0 == 1) || (h0 == 2 && v0 == 1) || (h0 == 2 && v0 == 2);
-      if (!chroma11 || !luma) not_mine("JPEG sampling factors other than 4:4:4, 4:2:2, 4:2:0");
+    // jdsample.c's jinit_upsampler: every component, luma included, is
+    // upsampled by the largest factors over its own; libjpeg-turbo
+    // implements integral ratios only
+    for (int i = 0; i < nc; i++) {
+      Component& c = comp[i];
+      if (hmax % c.h || vmax % c.v) not_mine("JPEG sampling factors with a non-integral ratio");
+      c.hr = hmax / c.h;
+      c.vr = vmax / c.v;
     }
     mcux = (W + 8 * hmax - 1) / (8 * hmax);
     mcuy = (H + 8 * vmax - 1) / (8 * vmax);
@@ -487,7 +508,9 @@ struct Decoder {
     const HuffTable& t = is_ac ? ac[id] : dc[id];
     if (t.defined) return t;
     // libjpeg-turbo supplies the Annex K tables for slots 0 and 1 that
-    // no DHT defined (Motion-JPEG frames carry none)
+    // no DHT defined (Motion-JPEG frames carry none), to sequential
+    // files only
+    if (progressive) bad("JPEG progressive scan uses a Huffman table that no DHT defines");
     static HuffTable std_tables[4];
     static bool made = [] {
       const uint8_t* bits[4] = {kDcLumBits, kDcChrBits, kAcLumBits, kAcChrBits};
@@ -509,10 +532,18 @@ struct Decoder {
     return std_tables[(is_ac ? 2 : 0) + id];
   }
 
+  // the DC predictor plus a difference; libjpeg-turbo's JERR_BAD_DCT_COEF
+  // where the sum leaves int
+  static int add_dc(int pred, int diff) {
+    int64_t v = int64_t(pred) + diff;
+    if (v > INT_MAX || v < INT_MIN) bad("JPEG DC coefficient out of range");
+    return int(v);
+  }
+
+  // jdhuff.c: one block of a sequential scan
   void decode_block(BitReader& br, ScanComp& s, int16_t* blk) {
     int t = br.decode(s.dc);
-    int diff = br.extend(t);
-    s.pred += diff;
+    s.pred = add_dc(s.pred, br.extend(t));
     blk[0] = int16_t(s.pred);
     for (int k = 1; k < 64; k++) {
       int rs = br.decode(s.ac);
@@ -528,6 +559,124 @@ struct Decoder {
     }
   }
 
+  // jdphuff.c's decode_mcu_DC_first, one block
+  void dc_first(BitReader& br, ScanComp& s, int16_t* blk) {
+    int t = br.decode(s.dc);
+    s.pred = add_dc(s.pred, br.extend(t));
+    blk[0] = int16_t(unsigned(s.pred) << al);
+  }
+
+  // decode_mcu_DC_refine: one bit a block
+  void dc_refine(BitReader& br, int16_t* blk) {
+    if (br.get(1)) blk[0] = int16_t(blk[0] | (1 << al));
+  }
+
+  // the length of an end-of-band run whose symbol carries r: 2^r plus r
+  // bits, this block included
+  int eob_run(BitReader& br, int r) { return (1 << r) + (r ? br.get(r) : 0); }
+
+  // decode_mcu_AC_first: the band's first pass, ending in a run of empty
+  // blocks where the EOBRUN says so
+  void ac_first(BitReader& br, ScanComp& s, int16_t* blk) {
+    if (eobrun > 0) {
+      eobrun--;
+      return;
+    }
+    for (int k = ss; k <= se; k++) {
+      int rs = br.decode(s.ac);
+      int r = rs >> 4, sz = rs & 15;
+      if (sz) {
+        k += r;
+        if (k > se) bad("JPEG block runs past its scan's band");
+        blk[kNatural[k]] = int16_t(unsigned(br.extend(sz)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = eob_run(br, r) - 1;
+        break;
+      }
+    }
+  }
+
+  // a correction bit for a coefficient that is already nonzero: 1 adds
+  // 1 << Al to its magnitude, unless that bit is already set
+  void correct(BitReader& br, int16_t* c) {
+    int p1 = 1 << al;
+    if (br.get(1) && (*c & p1) == 0) *c = int16_t(*c >= 0 ? *c + p1 : *c - p1);
+  }
+
+  // decode_mcu_AC_refine: correction bits for the band's nonzero
+  // coefficients, and the new +-1 << Al ones, across EOB runs
+  void ac_refine(BitReader& br, ScanComp& s, int16_t* blk) {
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; k++) {
+        int rs = br.decode(s.ac);
+        int r = rs >> 4, sz = rs & 15, value = 0;
+        if (sz) {
+          // libjpeg-turbo only warns (JWRN_HUFF_BAD_CODE) and reads one bit
+          if (sz != 1) bad("JPEG refinement scan codes a new coefficient of size above 1");
+          value = br.get(1) ? (1 << al) : -(1 << al);
+        } else if (r != 15) {
+          eobrun = eob_run(br, r);
+          break;
+        }
+        // pass the nonzero coefficients (each takes a correction bit) and
+        // r zero ones; stop on the zero that the new coefficient fills
+        for (; k <= se; k++) {
+          int16_t* c = &blk[kNatural[k]];
+          if (*c != 0) {
+            correct(br, c);
+          } else if (--r < 0) {
+            break;
+          }
+        }
+        if (value) {
+          if (k > se) bad("JPEG block runs past its scan's band");
+          blk[kNatural[k]] = int16_t(value);
+        }
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; k++) {
+        if (blk[kNatural[k]] != 0) correct(br, &blk[kNatural[k]]);
+      }
+      eobrun--;
+    }
+  }
+
+  void scan_block(BitReader& br, ScanComp& s, int16_t* blk) {
+    switch (kind) {
+      case kSequential: decode_block(br, s, blk); break;
+      case kDcFirst: dc_first(br, s, blk); break;
+      case kDcRefine: dc_refine(br, blk); break;
+      case kAcFirst: ac_first(br, s, blk); break;
+      case kAcRefine: ac_refine(br, s, blk); break;
+    }
+  }
+
+  // jdphuff.c's start_pass_phuff_decoder: the scan parameters that
+  // libjpeg-turbo refuses (JERR_BAD_PROGRESSION), then coef_bits, where a
+  // scan out of order (JWRN_BOGUS_PROGRESSION, only a warning there) is
+  // refused too
+  void start_progressive_scan(const ScanComp* sc, unsigned ns, int ah) {
+    bool dc_band = ss == 0;
+    bool ok = (dc_band ? se == 0 : ss <= se && se <= 63 && ns == 1) && (ah == 0 || al == ah - 1)
+              && al <= 13;
+    if (!ok) bad("JPEG progressive scan has a bad spectral selection or successive approximation");
+    kind = dc_band ? (ah ? kDcRefine : kDcFirst) : (ah ? kAcRefine : kAcFirst);
+    for (unsigned i = 0; i < ns; i++) {
+      int* bits = sc[i].c->coef_bits;
+      if (!dc_band && bits[0] < 0) bad("JPEG progressive AC scan before the component's DC scan");
+      for (int k = ss; k <= se; k++) {
+        if (ah != (bits[k] < 0 ? 0 : bits[k])) {
+          bad("JPEG progressive scan does not follow the previous scan of its band");
+        }
+        bits[k] = al;
+      }
+    }
+  }
+
   void read_sos() {
     if (!have_frame) bad("JPEG SOS before its SOF");
     size_t end;
@@ -535,6 +684,7 @@ struct Decoder {
     unsigned ns = u8();
     if (ns < 1 || ns > unsigned(nc) || end - pos != 2 * ns + 3) bad("JPEG SOS segment is invalid");
     ScanComp sc[3];
+    unsigned selector[3];
     for (unsigned i = 0; i < ns; i++) {
       unsigned id = u8(), tables = u8();
       Component* c = nullptr;
@@ -548,17 +698,38 @@ struct Decoder {
       for (unsigned j = 0; j < i; j++) {
         if (sc[j].c == c) bad("JPEG scan names a component twice");
       }
-      if (c->scanned) bad("JPEG component coded in two scans");
+      if (c->scanned && !progressive) bad("JPEG component coded in two scans");
       if ((tables >> 4) > 3 || (tables & 15) > 3) bad("JPEG Huffman table index above 3");
       sc[i].c = c;
-      sc[i].dc.build(huff_table(false, int(tables >> 4)), true);
-      sc[i].ac.build(huff_table(true, int(tables & 15)), false);
       sc[i].pred = 0;
+      selector[i] = tables;
     }
-    pos = end;  // Ss, Se, Ah/Al: a sequential decoder ignores them, as libjpeg does
+    // Ss, Se, Ah/Al: a sequential decoder ignores them, as libjpeg does
+    ss = int(u8());
+    se = int(u8());
+    unsigned ahal = u8();
+    al = int(ahal & 15);
+    kind = kSequential;
+    if (progressive) start_progressive_scan(sc, ns, int(ahal >> 4));
+    // the tables the scan kind reads; a DC refinement reads none
+    for (unsigned i = 0; i < ns; i++) {
+      if (kind == kSequential || kind == kDcFirst) {
+        sc[i].dc.build(huff_table(false, int(selector[i] >> 4)), true);
+      }
+      if (kind == kSequential || kind == kAcFirst || kind == kAcRefine) {
+        sc[i].ac.build(huff_table(true, int(selector[i] & 15)), false);
+      }
+    }
+    if (ns > 1) {
+      int blocks = 0;
+      for (unsigned i = 0; i < ns; i++) blocks += sc[i].c->h * sc[i].c->v;
+      if (blocks > 10) bad("JPEG MCU has more than 10 blocks");  // JERR_BAD_MCU_SIZE
+    }
     if (!allocated) allocate();
+    // latch_quant_tables: a component's table is the one at its first scan
     for (unsigned i = 0; i < ns; i++) {
       Component* c = sc[i].c;
+      if (c->scanned) continue;
       if (!quant_defined[c->tq]) bad("JPEG component uses a quantization table no DQT defines");
       std::memcpy(c->quant, quant[c->tq], sizeof c->quant);
       c->scanned = true;
@@ -575,10 +746,12 @@ struct Decoder {
     }
     BitReader br(d, n, pos);
     int left = restart_interval, next_rst = 0;
+    eobrun = 0;
     for (int my = 0; my < mcu_h; my++) {
       for (int mx = 0; mx < mcu_w; mx++) {
         if (restart_interval) {
           if (left == 0) {
+            if (eobrun) bad("JPEG end-of-band run runs past its restart interval");
             pos = br.resume();
             if (next_marker() != 0xD0u + unsigned(next_rst)) bad("JPEG restart marker missing");
             next_rst = (next_rst + 1) & 7;
@@ -590,33 +763,49 @@ struct Decoder {
         }
         if (ns == 1) {
           Component* c = sc[0].c;
-          decode_block(br, sc[0], &c->coef.p[(size_t(my) * c->bw + mx) * 64]);
+          scan_block(br, sc[0], &c->coef.p[(size_t(my) * c->bw + mx) * 64]);
         } else {
           for (unsigned i = 0; i < ns; i++) {
             Component* c = sc[i].c;
             for (int y = 0; y < c->v; y++) {
               for (int x = 0; x < c->h; x++) {
                 size_t b = size_t(my * c->v + y) * c->bw + size_t(mx * c->h + x);
-                decode_block(br, sc[i], &c->coef.p[b * 64]);
+                scan_block(br, sc[i], &c->coef.p[b * 64]);
               }
             }
           }
         }
       }
     }
+    if (eobrun) bad("JPEG end-of-band run runs past the end of its scan");
     pos = br.resume();
   }
 
-  // jidctint.c's jpeg_idct_islow of one block into 8 rows of out
-  static void idct(const int16_t* in, const int* q, uint8_t* out, size_t stride) {
+  // jidctint.c's jpeg_idct_islow of one block into 8 rows of out.
+  // Returns false where a value leaves the range that 8-bit data keeps
+  // it in (only corrupt data does): a dequantized coefficient or a
+  // first-pass value beyond 16 bits, or an output beyond +-512, where
+  // this C arithmetic wraps and libjpeg-turbo's SIMD builds saturate, so
+  // their pixels differ.
+  static bool idct(const int16_t* in, const int* q, uint8_t* out, size_t stride) {
     const uint8_t* limit = tables().idct_limit;
     int ws[64];
+    bool wide = false;
+    auto int16 = [&](int64_t v) {
+      wide |= v < -32768 || v > 32767;
+      return int(v);
+    };
+    auto sample = [&](int64_t v) {
+      wide |= v < -512 || v > 511;
+      return limit[int(v) & 1023];
+    };
+    for (int i = 0; i < 64; i++) int16(int64_t(in[i]) * q[i]);
     for (int col = 0; col < 8; col++) {
       const int16_t* ip = in + col;
       const int* qp = q + col;
       int* wp = ws + col;
       if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
-        int dcval = (ip[0] * qp[0]) * (1 << kPass1Bits);
+        int dcval = int16(int64_t(ip[0]) * qp[0] * (1 << kPass1Bits));
         for (int r = 0; r < 8; r++) wp[8 * r] = dcval;
         continue;
       }
@@ -654,21 +843,21 @@ struct Decoder {
       tmp2 += z2 + z3;
       tmp3 += z1 + z4;
       const int sh = kConstBits - kPass1Bits;
-      wp[0] = int(descale(tmp10 + tmp3, sh));
-      wp[56] = int(descale(tmp10 - tmp3, sh));
-      wp[8] = int(descale(tmp11 + tmp2, sh));
-      wp[48] = int(descale(tmp11 - tmp2, sh));
-      wp[16] = int(descale(tmp12 + tmp1, sh));
-      wp[40] = int(descale(tmp12 - tmp1, sh));
-      wp[24] = int(descale(tmp13 + tmp0, sh));
-      wp[32] = int(descale(tmp13 - tmp0, sh));
+      wp[0] = int16(descale(tmp10 + tmp3, sh));
+      wp[56] = int16(descale(tmp10 - tmp3, sh));
+      wp[8] = int16(descale(tmp11 + tmp2, sh));
+      wp[48] = int16(descale(tmp11 - tmp2, sh));
+      wp[16] = int16(descale(tmp12 + tmp1, sh));
+      wp[40] = int16(descale(tmp12 - tmp1, sh));
+      wp[24] = int16(descale(tmp13 + tmp0, sh));
+      wp[32] = int16(descale(tmp13 - tmp0, sh));
     }
     const int sh = kConstBits + kPass1Bits + 3;
     for (int row = 0; row < 8; row++) {
       const int* wp = ws + 8 * row;
       uint8_t* op = out + row * stride;
       if (!wp[1] && !wp[2] && !wp[3] && !wp[4] && !wp[5] && !wp[6] && !wp[7]) {
-        uint8_t v = limit[int(descale(wp[0], kPass1Bits + 3)) & 1023];
+        uint8_t v = sample(descale(wp[0], kPass1Bits + 3));
         for (int i = 0; i < 8; i++) op[i] = v;
         continue;
       }
@@ -703,15 +892,16 @@ struct Decoder {
       tmp1 += z2 + z4;
       tmp2 += z2 + z3;
       tmp3 += z1 + z4;
-      op[0] = limit[int(descale(tmp10 + tmp3, sh)) & 1023];
-      op[7] = limit[int(descale(tmp10 - tmp3, sh)) & 1023];
-      op[1] = limit[int(descale(tmp11 + tmp2, sh)) & 1023];
-      op[6] = limit[int(descale(tmp11 - tmp2, sh)) & 1023];
-      op[2] = limit[int(descale(tmp12 + tmp1, sh)) & 1023];
-      op[5] = limit[int(descale(tmp12 - tmp1, sh)) & 1023];
-      op[3] = limit[int(descale(tmp13 + tmp0, sh)) & 1023];
-      op[4] = limit[int(descale(tmp13 - tmp0, sh)) & 1023];
+      op[0] = sample(descale(tmp10 + tmp3, sh));
+      op[7] = sample(descale(tmp10 - tmp3, sh));
+      op[1] = sample(descale(tmp11 + tmp2, sh));
+      op[6] = sample(descale(tmp11 - tmp2, sh));
+      op[2] = sample(descale(tmp12 + tmp1, sh));
+      op[5] = sample(descale(tmp12 - tmp1, sh));
+      op[3] = sample(descale(tmp13 + tmp0, sh));
+      op[4] = sample(descale(tmp13 - tmp0, sh));
     }
+    return !wide;
   }
 
   void idct_component(Component& c) {
@@ -720,8 +910,10 @@ struct Decoder {
     int rbw = (c.w + 7) / 8, rbh = (c.ht + 7) / 8;
     for (int by = 0; by < rbh; by++) {
       for (int bx = 0; bx < rbw; bx++) {
-        idct(&c.coef.p[(size_t(by) * c.bw + bx) * 64], c.quant,
-             &c.plane[size_t(by) * 8 * stride + size_t(bx) * 8], stride);
+        if (!idct(&c.coef.p[(size_t(by) * c.bw + bx) * 64], c.quant,
+                  &c.plane[size_t(by) * 8 * stride + size_t(bx) * 8], stride)) {
+          bad("JPEG coefficients beyond the range of 8-bit samples");
+        }
       }
     }
     c.coef.release();
@@ -760,34 +952,57 @@ struct Decoder {
     out[2 * cw - 1] = uint8_t((this_s * 4 + 7) >> 4);
   }
 
-  // chroma row of component c upsampled to full width for output row y
-  void chroma_row(const Component& c, int y, uint8_t* out) const {
+  // jdsample.c's h1v2_fancy_upsample of one output row: the nearest
+  // row weighs 3, the next nearest (above for an even row, with bias 1;
+  // below for an odd row, bias 2) 1
+  static void fancy_h1v2(const uint8_t* near, const uint8_t* far, int bias, int cw,
+                         uint8_t* out) {
+    for (int x = 0; x < cw; x++) out[x] = uint8_t((near[x] * 3 + far[x] + bias) >> 2);
+  }
+
+  // row y of component c at full size, by the method jinit_upsampler
+  // picks for its ratio to the largest factors: the plane's own row, or
+  // out filled.  Rows past the component's last repeat it, as libjpeg's
+  // context rows do.
+  const uint8_t* upsampled_row(const Component& c, int y, uint8_t* out) const {
     size_t stride = size_t(c.bw) * 8;
     const uint8_t* p = c.plane.data();
     int cw = c.w;
-    if (hmax == 1) {  // 4:4:4
-      std::memcpy(out, p + size_t(y) * stride, size_t(cw));
-    } else if (vmax == 1) {  // 4:2:2
-      const uint8_t* row = p + size_t(y) * stride;
-      if (cw > 2) {
-        fancy_h2(row, cw, out);
-      } else {
-        for (int x = 0; x < 2 * cw; x++) out[x] = row[x >> 1];
-      }
-    } else {  // 4:2:0
+    if (c.hr == 1 && c.vr == 1) return p + size_t(y) * stride;  // fullsize_upsample
+    if (c.hr == 2 && c.vr == 1 && cw > 2) {
+      fancy_h2(p + size_t(y) * stride, cw, out);
+    } else if (c.hr == 1 && c.vr == 2) {
       int cy = y >> 1;
-      const uint8_t* near = p + size_t(cy) * stride;
-      if (cw > 2) {
-        int fy = (y & 1) ? (cy + 1 < c.ht ? cy + 1 : cy) : (cy > 0 ? cy - 1 : 0);
-        fancy_h2v2(near, p + size_t(fy) * stride, cw, out);
+      if (y & 1) {
+        fancy_h1v2(p + size_t(cy) * stride, p + size_t(cy + 1 < c.ht ? cy + 1 : cy) * stride, 2,
+                   cw, out);
       } else {
-        for (int x = 0; x < 2 * cw; x++) out[x] = near[x >> 1];
+        fancy_h1v2(p + size_t(cy) * stride, p + size_t(cy > 0 ? cy - 1 : 0) * stride, 1, cw, out);
       }
+    } else if (c.hr == 2 && c.vr == 2 && cw > 2) {
+      int cy = y >> 1;
+      int fy = (y & 1) ? (cy + 1 < c.ht ? cy + 1 : cy) : (cy > 0 ? cy - 1 : 0);
+      fancy_h2v2(p + size_t(cy) * stride, p + size_t(fy) * stride, cw, out);
+    } else {
+      // int_upsample (and h2v1_upsample / h2v2_upsample for rows of 2
+      // samples or less): each sample repeated hr x vr times
+      const uint8_t* row = p + size_t(y / c.vr) * stride;
+      for (int x = 0; x < W; x++) out[x] = row[x / c.hr];
     }
+    return out;
   }
 
   void output(uint8_t* out) {
     if (int64_t(H) * W * nc != out_len) bad("output buffer has the wrong size");
+    // jdcoefct.c's smoothing_ok: where a coefficient is not refined to
+    // its last bit (or never coded), libjpeg-turbo smooths blocks
+    if (progressive) {
+      for (int i = 0; i < nc; i++) {
+        for (int k = 0; k < 64; k++) {
+          if (comp[i].coef_bits[k] != 0) not_mine("progressive JPEG leaves coefficients unrefined");
+        }
+      }
+    }
     for (int i = 0; i < nc; i++) {
       if (!comp[i].scanned) bad("JPEG component never coded in a scan");
       idct_component(comp[i]);
@@ -809,13 +1024,12 @@ struct Decoder {
       }
     }
     const Tables& t = tables();
-    const Component& cy = comp[0];
-    size_t ystride = size_t(cy.bw) * 8;
-    std::vector<uint8_t> cb(size_t(W) + 16), cr(size_t(W) + 16);
+    std::vector<uint8_t> buf[3];
+    for (auto& b : buf) b.resize(size_t(W) + 16);
     for (int y = 0; y < H; y++) {
-      chroma_row(comp[1], y, cb.data());
-      chroma_row(comp[2], y, cr.data());
-      const uint8_t* yr = &cy.plane[size_t(y) * ystride];
+      const uint8_t* yr = upsampled_row(comp[0], y, buf[0].data());
+      const uint8_t* cb = upsampled_row(comp[1], y, buf[1].data());
+      const uint8_t* cr = upsampled_row(comp[2], y, buf[2].data());
       uint8_t* o = out + size_t(y) * W * 3;
       if (rgb) {
         for (int x = 0; x < W; x++) {
@@ -839,12 +1053,13 @@ struct Decoder {
     if (n < 2 || d[0] != 0xFF || d[1] != 0xD8) bad("not a JPEG file (no SOI marker)");
     for (;;) {
       unsigned m = next_marker();
-      if (m == 0xC0 || m == 0xC1) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
         if (have_frame) bad("JPEG has a second SOF");
+        progressive = m == 0xC2;
         read_sof();
         if (header_only) return;
-      } else if ((m >= 0xC2 && m <= 0xCB && m != 0xC4 && m != 0xC8) || (m >= 0xCD && m <= 0xCF)) {
-        not_mine("JPEG is not baseline or extended sequential Huffman");
+      } else if ((m >= 0xC3 && m <= 0xCB && m != 0xC4 && m != 0xC8) || (m >= 0xCD && m <= 0xCF)) {
+        not_mine("JPEG is not sequential or progressive Huffman");
       } else if (m == 0xCC) {
         not_mine("JPEG uses arithmetic coding");
       } else if (m == 0xC4) {

@@ -3,8 +3,8 @@
 The port's own copy of ``spectavi_tpu/pipeline/io.py``: imread with max
 normalization, BT.601 grayscale, ``Timer``, metrics JSON, ASCII PLY.
 
-PNG and baseline JPEG go through codecs of the port's own, so the
-pipelines run from PNG and JPEG files on machines without Pillow:
+PNG and JPEG go through codecs of the port's own, so the pipelines run
+from PNG and JPEG files on machines without Pillow:
 
 * PNG (numpy and the standard library's ``zlib``): :func:`imread` reads
   8-bit non-interlaced PNG of colour types 0, 2, 3, 4 and 6 to exactly
@@ -12,14 +12,17 @@ pipelines run from PNG and JPEG files on machines without Pillow:
   their indices), and :func:`imsave` writes 8-bit gray, gray + alpha,
   RGB and RGBA PNG.
 * JPEG (host C++, :mod:`spectavi_tpu_torch.pipeline.jpeg`, compiled at
-  first use): :func:`imread` reads sequential Huffman JPEG at 8 bits,
-  gray or colour sampled 4:4:4, 4:2:2 or 4:2:0, to exactly Pillow's
-  array, and :func:`imsave` writes the ``.jpg`` / ``.jpeg`` file that
-  Pillow writes (baseline, quality 75, 4:2:0 for RGB).
+  first use): :func:`imread` reads baseline and progressive Huffman
+  JPEG at 8 bits, gray or colour at any integral sampling factors, to
+  exactly Pillow's array, and :func:`imsave` writes the ``.jpg`` /
+  ``.jpeg`` file that Pillow writes (baseline, quality 75, 4:2:0 for
+  RGB).
 
-Other formats, and the variants the codecs do not read (PNG of other bit
-depths or interlaced; progressive, arithmetic-coded, lossless, 12-bit or
-CMYK JPEG, or other sampling factors), go through Pillow.
+Other formats, and the variants the codecs do not read, go through
+Pillow: PNG of other bit depths or interlaced; arithmetic-coded,
+lossless, hierarchical or 12-bit JPEG, CMYK and YCCK, non-integral
+sampling factors, and progressive files whose scans leave coefficients
+unrefined.
 """
 
 from __future__ import annotations
@@ -218,7 +221,8 @@ def _pillow():
     except ImportError as e:
         raise ImportError(
             "this image format needs Pillow, which is not installed; baseline "
-            "JPEG and 8-bit non-interlaced PNG are read and written without it") from e
+            "and progressive JPEG and 8-bit non-interlaced PNG are read without "
+            "it (and JPEG and PNG written)") from e
     return Image
 
 

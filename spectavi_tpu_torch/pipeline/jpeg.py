@@ -1,16 +1,20 @@
-"""Baseline JPEG through the port's own codec (``csrc/jpeg_host.cpp``).
+"""JPEG through the port's own codec (``csrc/jpeg_host.cpp``).
 
 The codec is host C++, compiled with the host compiler at first use
 (:mod:`spectavi_tpu_torch.ops._build`) and called through ``ctypes``:
 
-* :func:`read_jpeg` decodes sequential Huffman JPEG at 8 bits (SOF0 and
-  SOF1), gray or YCbCr/RGB sampled 4:4:4, 4:2:2 or 4:2:0, to exactly the
-  array ``np.asarray(PIL.Image.open(f))`` gives with Pillow's
-  libjpeg-turbo (integer inverse DCT, fancy upsampling, fixed-point
+* :func:`read_jpeg` decodes Huffman JPEG at 8 bits, sequential (SOF0 and
+  SOF1) or progressive (SOF2), gray or YCbCr/RGB at any integral
+  sampling factors (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, ...), to exactly
+  the array ``np.asarray(PIL.Image.open(f))`` gives with Pillow's
+  libjpeg-turbo (integer inverse DCT, its upsampling methods, fixed-point
   colour conversion).  It returns None for the JPEG variants it leaves
-  to Pillow (progressive, arithmetic coding, lossless, 12-bit, 2 or 4
-  components, other sampling factors) and raises ``ValueError`` for a
-  malformed file.
+  to Pillow (arithmetic coding, lossless, hierarchical, 12-bit, 2 or 4
+  components such as CMYK and YCCK, non-integral sampling factors, and
+  progressive files whose scans leave coefficients unrefined, which
+  libjpeg-turbo smooths) and raises ``ValueError`` for a malformed
+  file.  A progressive file is claimed from its header, so it may still
+  come back as None once its scans are read.
 * :func:`write_jpeg` writes the file that Pillow's ``Image.fromarray(arr)
   .save(path)`` writes for a ``.jpg`` name: baseline, quality 75, 4:2:0
   for RGB, one component for gray.

@@ -24,7 +24,8 @@ rendered view is).  For each, the best of ``--repeat`` runs of:
   quality 75 (Pillow's default) and 95, the JPEG writer against Pillow's
   ``Image.save`` (the files must be the same bytes) and the JPEG decoder
   against Pillow's decode of that file (the arrays must be equal), with
-  the file's size.
+  the file's size; and both decoders on Pillow's progressive file of the
+  image (``progressive``: ``read_s``, ``bytes``).
 
 Prints one JSON line.
 """
@@ -139,8 +140,10 @@ def main(argv=None):
 
 def jpeg_times(Image, images, tmp, repeat):
     """The JPEG codec against Pillow: ``{image: {quality: {write_s,
-    read_s, bytes}}}``, each file and array checked equal to Pillow's."""
+    read_s, bytes, progressive: {read_s, bytes}}}}``, each file and array
+    checked equal to Pillow's."""
     codec_f, pil_f = os.path.join(tmp, "codec.jpg"), os.path.join(tmp, "pillow.jpg")
+    prog_f = os.path.join(tmp, "progressive.jpg")
     out = {}
     for name, arr in images.items():
         out[name] = {}
@@ -153,7 +156,16 @@ def jpeg_times(Image, images, tmp, repeat):
             assert np.array_equal(read_jpeg(data), ref)
             read = {"codec": best(lambda: read_jpeg(open(codec_f, "rb").read()), repeat),
                     "pillow": best(lambda: np.asarray(Image.open(pil_f)), repeat)}
-            out[name][q] = {"write_s": write, "read_s": read, "bytes": len(data)}
+            Image.fromarray(arr).save(prog_f, quality=q, progressive=True)
+            prog = open(prog_f, "rb").read()
+            assert np.array_equal(read_jpeg(prog), np.asarray(Image.open(prog_f)))
+            progressive = {"read_s": {"codec": best(lambda: read_jpeg(open(prog_f, "rb").read()),
+                                                    repeat),
+                                      "pillow": best(lambda: np.asarray(Image.open(prog_f)),
+                                                     repeat)},
+                           "bytes": len(prog)}
+            out[name][q] = {"write_s": write, "read_s": read, "bytes": len(data),
+                            "progressive": progressive}
     return out
 
 

@@ -12,12 +12,15 @@ and the pipelines from JPEG files against the JAX package.
   search over sizes, content and settings.
 * Encode: the file is byte-identical to Pillow's ``Image.save`` (gray
   and RGB, odd and even sizes, quality 75 through ``imsave`` and 95).
-* Progressive and CMYK files go to Pillow; with Pillow blocked
+* Variants the codec leaves to Pillow go to it: progressive files cut
+  after their first scans (coefficients left unrefined, which
+  libjpeg-turbo smooths) and CMYK; with Pillow blocked
   (``sys.modules["PIL"] = None``, in a subprocess) they raise an
   ``ImportError`` that names Pillow, while baseline files are read and
-  written.  Malformed files raise ``ValueError`` in a subprocess that
-  exits cleanly.  A failed build of the codec raises, and the file is
-  not handed to Pillow.
+  written (complete progressive files are
+  ``test_torch_jpeg_progressive.py``'s).  Malformed files raise
+  ``ValueError`` in a subprocess that exits cleanly.  A failed build of
+  the codec raises, and the file is not handed to Pillow.
 * From the 3 rendered 120x160 views saved as RGB JPEG by Pillow: the
   decoded arrays are JAX's exactly; ex01 and ex02 run as CLIs with
   Pillow blocked; given JAX's matches and RANSAC draws, the port's ex01
@@ -237,13 +240,28 @@ def test_writer_refuses_other_arrays(tmp_path):
             pio.imsave(str(tmp_path / "x.jpg"), bad)
 
 
+def cut_after_scan(data, k):
+    """``data`` cut after its ``k``-th scan's entropy-coded data, with
+    EOI appended: for a progressive file, one whose later scans never
+    refine what the first ``k`` coded."""
+    pos = 0
+    for _ in range(k):
+        pos = data.index(b"\xff\xda", pos) + 2
+    pos += int.from_bytes(data[pos:pos + 2], "big")
+    # the next marker: FF followed by neither a stuffed 00 nor an RSTn
+    while not (data[pos] == 0xFF and data[pos + 1] not in (0x00, *range(0xD0, 0xD8))):
+        pos += 1
+    return data[:pos] + b"\xff\xd9"
+
+
 def _variant(name):
     arr = _pixels(np.random.default_rng(13), 33, 47, 1 if name == "progressive-gray" else 3)
     if name == "cmyk":
         f = io.BytesIO()
         Image.fromarray(arr).convert("CMYK").save(f, format="JPEG")
         return f.getvalue()
-    return _pillow_jpeg(arr, progressive=True)
+    # a progressive file whose coefficients stay unrefined
+    return cut_after_scan(_pillow_jpeg(arr, progressive=True), 2)
 
 
 @pytest.mark.parametrize("name", ["progressive-gray", "progressive-rgb", "cmyk"])
@@ -387,21 +405,25 @@ def test_host_source_build_names():
 # --- the pipelines from JPEG files --------------------------------------
 
 
-@pytest.fixture(scope="module")
-def jpeg_views(tmp_path_factory):
+def make_jpeg_views(tmp, **save_kw):
     """The 3 rendered 120x160 views of ``tests/test_sfm_pipeline.py`` as
-    RGB JPEG (distinct channels), written by Pillow at its defaults."""
+    RGB JPEG (distinct channels) in ``tmp``, written by Pillow at its
+    defaults and ``save_kw``: ``(tmp, paths, K file, camera centres)``."""
     from test_sfm_pipeline import _tiny_dataset
 
-    tmp = tmp_path_factory.mktemp("jpeg_views")
     pngs, kfile, gt_C = _tiny_dataset(tmp, np.random.default_rng(0xDEADBEEF))
     paths = []
     for p in pngs:
         g = np.asarray(Image.open(p)).astype(np.int32)
         rgb = np.stack([g, 3 * g // 4 + 32, g // 2 + 100], axis=-1).astype(np.uint8)
         paths.append(p[:-4] + ".jpg")
-        Image.fromarray(rgb).save(paths[-1])
+        Image.fromarray(rgb).save(paths[-1], **save_kw)
     return tmp, paths, kfile, gt_C
+
+
+@pytest.fixture(scope="module")
+def jpeg_views(tmp_path_factory):
+    return make_jpeg_views(tmp_path_factory.mktemp("jpeg_views"))
 
 
 def _block_pillow(monkeypatch):
@@ -427,6 +449,11 @@ def test_decoded_views_are_jax_arrays(jpeg_views, monkeypatch):
 
 
 def test_clis_without_pillow(jpeg_views, tmp_path):
+    clis_without_pillow(jpeg_views, tmp_path)
+
+
+def clis_without_pillow(jpeg_views, tmp_path):
+    """ex01 and ex02 as CLIs from the views, with Pillow blocked."""
     _, paths, kfile, _ = jpeg_views
     # two threads, as in this process: the suite's workers share the cores
     threads = "import torch\ntorch.set_num_threads(2)\n"
@@ -450,6 +477,10 @@ def test_clis_without_pillow(jpeg_views, tmp_path):
 
 
 def test_ex01_on_jax_matches_and_draws_vs_jax(jpeg_views, monkeypatch):
+    ex01_on_jax_matches_and_draws_vs_jax(jpeg_views, monkeypatch)
+
+
+def ex01_on_jax_matches_and_draws_vs_jax(jpeg_views, monkeypatch):
     """JAX's ``run_two_view`` (Pillow decodes and writes) and the port's
     ex01 (Pillow blocked) given JAX's ``cache.npz`` and RANSAC draws."""
     from spectavi_tpu.pipeline.two_view import run_two_view as jax_run_two_view
@@ -559,6 +590,10 @@ def _hand_jax_pair_draws(monkeypatch, seed):
 
 
 def test_run_sfm_vs_jax(jpeg_views, monkeypatch):
+    run_sfm_vs_jax(jpeg_views, monkeypatch)
+
+
+def run_sfm_vs_jax(jpeg_views, monkeypatch):
     """Given JAX's RANSAC draws (on the JPEG views the draws alone move
     the track count by up to 6% on either side)."""
     from spectavi_tpu.pipeline.sfm import run_sfm as jax_run_sfm

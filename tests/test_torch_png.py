@@ -10,15 +10,18 @@
   repository's own PNGs agree too.
 * The writer (``imsave``): gray, gray + alpha, RGB and RGBA files that
   Pillow reads back to the same pixels.
-* The variants the codecs do not read (16-bit, interlaced, progressive
-  JPEG) go to Pillow; malformed files raise.
+* The variants the codecs do not read (16-bit, interlaced, a progressive
+  JPEG cut after its second scan, whose coefficients stay unrefined) go
+  to Pillow; malformed files raise.
 * With Pillow blocked (``sys.modules["PIL"] = None``, in a subprocess):
-  ``imread`` of a PNG and of a baseline JPEG works, and of a progressive
-  JPEG raises an ``ImportError`` that names Pillow; ex01 and ex02 run from PNG files on the CPU and write
+  ``imread`` of a PNG and of a baseline JPEG works, and of such a cut
+  progressive JPEG raises an ``ImportError`` that names Pillow; ex01 and
+  ex02 run from PNG files on the CPU and write
   their outputs; ex01 ``--plots`` with matplotlib blocked raises before
   SIFT runs.
 """
 
+import io
 import os
 import pathlib
 import struct
@@ -178,6 +181,7 @@ def _adam7(arr):
 @pytest.mark.parametrize("variant", ["16-bit", "interlaced", "progressive-jpeg"])
 def test_other_variants_go_to_pillow(tmp_path, variant):
     from spectavi_tpu_torch.pipeline.jpeg import read_jpeg
+    from test_torch_jpeg import cut_after_scan
 
     rng = np.random.default_rng(3)
     arr = rng.integers(0, 256, (21, 30), dtype=np.uint8)
@@ -187,7 +191,9 @@ def test_other_variants_go_to_pillow(tmp_path, variant):
     elif variant == "interlaced":
         path.write_bytes(_adam7(arr))
     else:
-        Image.fromarray(arr).save(path, quality=90, progressive=True)
+        f = io.BytesIO()
+        Image.fromarray(arr).save(f, format="JPEG", quality=90, progressive=True)
+        path.write_bytes(cut_after_scan(f.getvalue(), 2))
     if variant == "progressive-jpeg":
         assert read_jpeg(path.read_bytes()) is None
     else:
@@ -252,10 +258,15 @@ def views(tmp_path_factory):
 
 
 def test_imread_without_pillow(views, tmp_path):
+    from test_torch_jpeg import cut_after_scan
+
     _, paths, _ = views
     jpg, progressive = tmp_path / "im.jpg", tmp_path / "progressive.jpg"
     Image.fromarray(np.full((8, 12), 77, np.uint8)).save(jpg)
-    Image.fromarray(np.zeros((8, 8), np.uint8)).save(progressive, progressive=True)
+    f = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8), np.uint8)).save(f, format="JPEG", progressive=True)
+    # cut after its second scan: coefficients left unrefined go to Pillow
+    progressive.write_bytes(cut_after_scan(f.getvalue(), 2))
     code = (
         "import numpy as np\n"
         "from spectavi_tpu_torch.pipeline.io import imread\n"
