@@ -92,6 +92,23 @@ Phases, one JSON line each:
                 in a subprocess on the rendered pair as RGB JPEG files,
                 identical to the byte to the array path on the decodes,
                 and ``run_sfm`` from the 10 views as JPEG (``phase_jpeg``);
+* ``jpeg_progressive`` every file of ``tests/data/jpeg/`` (progressive,
+                restarts, 4:4:0, 4:1:1) against Pillow's pinned digests,
+                and ex01 cold from the progressive pair, identical to
+                the byte to the array path (``phase_jpeg_progressive``);
+* ``png_depths`` PNG of every bit depth and colour type, plain and
+                Adam7, from this script's own encoder (``png_encode``):
+                (a) 30 files at 37x53 against Pillow's rule and pinned
+                digests, (b) decode seconds of 16-bit gray, 16-bit RGB
+                and 8-bit Adam7 RGB at 2048x3072 against budgets, (c)
+                ex01 cold from the pair as 16-bit gray (the two-view
+                gates, identical to the byte to the array path on the
+                ``uint16`` decodes, K1-K3 launched in-process), (d) the
+                RGB pair as Adam7 and 480x640 pairs at 1 and 4 bits
+                against their array paths, (e) ex02 cold from the 10
+                views as 16-bit gray against ``run_sfm_arrays``, (f) the
+                small 16-bit pair on the card against the CPU
+                (``phase_png_depths``);
 * ``distributed`` the mesh layer in worker processes (``--dist-worker``):
                 one NCCL rank and four gloo ranks, each with its own
                 launch counts (``dist_worker``);
@@ -100,9 +117,10 @@ Phases, one JSON line each:
                 its summed device time over the profiled warm run,
                 ``launches_sfm`` / ``run_ms_sfm`` of the 10-view run,
                 ``launches_surface`` of the unmasked step,
-                ``launches_entry_points`` and ``launches_jpeg`` of those
-                phases' in-process runs and ``launches_dist`` by job and
-                rank.
+                ``launches_entry_points``, ``launches_jpeg``,
+                ``launches_jpeg_progressive`` and ``launches_png_depths``
+                of those phases' in-process runs and ``launches_dist`` by
+                job and rank.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 last the contract line ``{"ok": true, "device": {...}}``.  Any failure
@@ -1958,6 +1976,476 @@ def phase_jpeg_progressive(torch, np, wrappers, smi):
     return launches
 
 
+# --- PNG of every bit depth, and Adam7 --------------------------------
+
+# (colour type, bit depth) of every pair that PNG allows
+PNG_DEPTH_CASES = {"gray1": (0, 1), "gray2": (0, 2), "gray4": (0, 4), "gray8": (0, 8),
+                   "gray16": (0, 16), "rgb8": (2, 8), "rgb16": (2, 16), "palette1": (3, 1),
+                   "palette2": (3, 2), "palette4": (3, 4), "palette8": (3, 8),
+                   "gray_alpha8": (4, 8), "gray_alpha16": (4, 16), "rgba8": (6, 8),
+                   "rgba16": (6, 16)}
+PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# entries of the digest files' palette (indices stay below it)
+PNG_PALETTE_SIZE = 40
+# sha256 (png_digest: dtype name and shape included) of Pillow's array
+# (Pillow 12.1.0, np.asarray(Image.open(f))) of each case's files of
+# png_depth_files(), plain and Adam7 alike; tests/test_torch_png_depths.py
+# holds them to Pillow, so that the card's host, which has no Pillow,
+# holds the codec to Pillow's arrays
+PNG_DEPTH_SHA256 = {
+    "gray1": "bc42d6f49c4732f698bc77114fb4ee7370d27ae4dcc5979d0f024dce0db63f87",
+    "gray2": "a0aa85558c124d68c7439c2e1b04d54d00cb47e059a3be4cf5a9a8adbbf8aa96",
+    "gray4": "d93b66205ae38b3468909e489f9f5f1bc1d6a2d13b0b409daa07ea93580da129",
+    "gray8": "b3424d82fc07a3bdf4f503b74770d10987ba14428159fdbca02b89a95617d5ac",
+    "gray16": "e8eeb7ac55a03673be5b738b40dae9dbaa47a42327db39ead065c8d8d6e017fb",
+    "rgb8": "d3b5f759ea2105a719204b33e3531b5527c0b7f44f91ba3a2b02ece76ce06a7a",
+    "rgb16": "9442dacdc690fc3717253958ef946f4e1a021b046ec0720655779e05c30ca82a",
+    "palette1": "63551f0a212f13ef6bc3b3e7ad57e466f0844679e5ee3e7545011a82e44b0aa8",
+    "palette2": "561dc3bd614d3754fc4d258b71d7278c0574ddc8aa2a32f1043e00013e92f54b",
+    "palette4": "dda66ba7ffe499f39e08ee5371d5565f2b8c63c6b4d77240f6f1b9e2fe47849f",
+    "palette8": "d30c7477ea212608c0cff8358650534315c8d91c05fbcd7c3973a38db99af015",
+    "gray_alpha8": "704430c2711effbc546ffa2101c652671eeac774d94fc2785e6513393ead49fc",
+    "gray_alpha16": "024f48e879866d096887a9e21ecf787f8b58bc3c545c98eaf0da6adfe72806af",
+    "rgba8": "97656c4b02cd0f1a112b23ec1051fcec39a6427c0c716449b90a7f8632e0d10f",
+    "rgba16": "e13577a72ab1cf52d6f1760e712e8157cfc1d16a8bff68601bd20077ce7f6061",
+}
+# the phase's budgets, seconds a 2048x3072 decode on the card's host:
+# 16-bit gray and 16-bit RGB of Paeth rows, and 8-bit RGB Adam7 of
+# Paeth rows (seven wavefronts of ~12.3k diagonal steps, against ~5.1k)
+PNG_DECODE_BUDGET_S = {"gray16_paeth": 2.0, "rgb16_paeth": 2.0, "rgb8_adam7_paeth": 4.0}
+
+
+def mix64(np, x):
+    """splitmix64's finaliser of uint64 ``x``: a seeded stream of
+    integers that every numpy gives alike."""
+    x = x + np.uint64(0x9E3779B97F4A7C15)
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def png_depth_samples(np, ctype, depth, h=37, w=53, seed=SEED):
+    """A seeded image of colour type ``ctype`` at ``depth`` bits, as its
+    samples ``(h, w[, C])`` (uint16 at 16 bits, else uint8): a ramp with
+    noise, so that every row filter predicts something, or random
+    palette indices."""
+    ch = PNG_CHANNELS[ctype]
+    idx = np.arange(h * w * ch, dtype=np.uint64).reshape(h, w, ch)
+    noise = mix64(np, idx + np.uint64((seed * 1000 + ctype * 100 + depth) << 32))
+    top = 1 << depth
+    if ctype == 3:
+        x = noise % np.uint64(min(top, PNG_PALETTE_SIZE))
+    else:
+        y_, x_, c_ = np.indices((h, w, ch), dtype=np.int64)
+        ramp = (y_ * 3 + x_ * 5 + c_ * 7) * max(1, top // 64)
+        x = (ramp + (noise % np.uint64(max(2, top // 16))).astype(np.int64)) % top
+    x = x.astype(np.uint16 if depth == 16 else np.uint8)
+    return x[..., 0] if ch == 1 else x
+
+
+def png_paeth(np, a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def png_encode(np, samples, ctype, depth, filters, interlace=0, level=3, palette=None):
+    """A PNG file's bytes (numpy and ``zlib``) of ``samples`` ``(H,
+    W[, C])`` at ``depth`` bits of colour type ``ctype``, Adam7 when
+    ``interlace``; the ``k``-th row of the stream (counting across
+    passes) filtered by ``filters[k % len(filters)]`` (0-4: None, Sub,
+    Up, Average, Paeth); a palette of ``PNG_PALETTE_SIZE`` grays unless
+    ``palette`` is given."""
+    import struct
+    import zlib
+
+    h, w = samples.shape[:2]
+    ch = PNG_CHANNELS[ctype]
+    bpp = max(1, ch * depth // 8)
+    passes = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2),
+              (0, 1, 2, 2), (1, 0, 2, 1)) if interlace else ((0, 0, 1, 1),)
+    parts, k = [], 0
+    for y0, x0, dy, dx in passes:
+        sub = samples[y0::dy, x0::dx]
+        if not sub.size:
+            continue
+        ph = sub.shape[0]
+        x = sub.reshape(ph, -1)
+        if depth == 16:
+            rows = x.astype(">u2").view(np.uint8).reshape(ph, -1)
+        elif depth == 8:
+            rows = x.astype(np.uint8)
+        else:  # packed most significant bits first, zero padding bits
+            per = 8 // depth
+            n = -(-x.shape[1] // per)
+            padded = np.zeros((ph, n * per), np.uint16)
+            padded[:, :x.shape[1]] = x
+            shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint16)
+            rows = (padded.reshape(ph, n, per) << shifts).sum(axis=2).astype(np.uint8)
+        cur = rows.astype(np.int16)
+        a = np.zeros_like(cur)
+        a[:, bpp:] = cur[:, :-bpp]
+        b = np.zeros_like(cur)
+        b[1:] = cur[:-1]
+        c = np.zeros_like(cur)
+        c[1:, bpp:] = cur[:-1, :-bpp]
+        ftype = np.asarray([filters[(k + r) % len(filters)] for r in range(ph)], np.uint8)
+        k += ph
+        out = np.empty((ph, 1 + rows.shape[1]), np.uint8)
+        out[:, 0] = ftype
+        for f in np.unique(ftype):
+            sel = ftype == f
+            pred = (0, a[sel], b[sel], (a[sel] + b[sel]) >> 1,
+                    png_paeth(np, a[sel], b[sel], c[sel]) if f == 4 else None)[f]
+            out[sel, 1:] = (cur[sel] - pred) & 255
+        parts.append(out.tobytes())
+    chunk = lambda name, body: (struct.pack(">I", len(body)) + name + body
+                                + struct.pack(">I", zlib.crc32(name + body)))
+    if palette is None:
+        palette = bytes(np.repeat(np.arange(PNG_PALETTE_SIZE) * 6, 3).astype(np.uint8))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+            + (chunk(b"PLTE", palette) if ctype == 3 else b"")
+            + chunk(b"IDAT", zlib.compress(b"".join(parts), level)) + chunk(b"IEND", b""))
+
+
+def png_pillow_rule(np, samples, ctype, depth):
+    """The array Pillow gives a PNG of these samples
+    (``np.asarray(Image.open(f))``): palette indices; gray at 1 bit as
+    bool, at 2 and 4 bits times 85 and 17, at 16 bits as uint16; RGB,
+    RGBA and gray + alpha at 16 bits as their high bytes, gray + alpha
+    at 16 bits as RGBA with the gray in R, G and B."""
+    if ctype == 0 and depth == 1:
+        return samples != 0
+    if ctype == 0 and depth in (2, 4):
+        return (samples * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    if depth == 16 and ctype != 0:
+        hi = (samples >> 8).astype(np.uint8)
+        return np.stack([hi[..., 0]] * 3 + [hi[..., 1]], axis=-1) if ctype == 4 else hi
+    return samples
+
+
+def png_digest(arr):
+    """sha256 of an array's dtype name, shape and values.  Booleans are
+    hashed as 0 and 1: Pillow's ``bool`` arrays hold 0xFF for True,
+    which numpy reads as True like the codec's 1."""
+    import hashlib
+
+    head = f"{arr.dtype.name}{tuple(arr.shape)}".encode()
+    values = arr.astype("uint8") if arr.dtype.kind == "b" else arr
+    return hashlib.sha256(head + values.tobytes()).hexdigest()
+
+
+def png_depth_files(np, seed=SEED):
+    """``{(case, interlace): (file bytes, Pillow's array by
+    png_pillow_rule)}`` of every (colour type, depth) pair of
+    ``PNG_DEPTH_CASES``, plain and Adam7, at 37x53, each row's filter
+    drawn from the seeded stream."""
+    files = {}
+    for name, (ctype, depth) in PNG_DEPTH_CASES.items():
+        samples = png_depth_samples(np, ctype, depth, seed=seed)
+        filters = (mix64(np, np.arange(400, dtype=np.uint64) + np.uint64(seed))
+                   % np.uint64(5)).astype(int).tolist()
+        want = png_pillow_rule(np, samples, ctype, depth)
+        for interlace in (0, 1):
+            files[name, interlace] = (png_encode(np, samples, ctype, depth, filters, interlace),
+                                      want)
+    return files
+
+
+def to_depth(np, x01, depth, seed):
+    """Floats in [0, 1] as integer samples of ``depth`` bits, with a
+    seeded dither below one step (so the low byte of 16-bit samples
+    carries signal): uint16 at 16 bits, else uint8."""
+    top = (1 << depth) - 1
+    u = np.random.default_rng(seed).random(np.shape(x01))
+    q = np.clip(np.floor(np.asarray(x01, np.float64) * top + u), 0, top)
+    return q.astype(np.uint16 if depth == 16 else np.uint8)
+
+
+def phase_png_depths(torch, np, pair, small, wrappers, smi):
+    """ex01 and ex02 from PNG files of other bit depths and Adam7, as
+    users run them, on the card (files in a temporary directory under
+    ``build/``, removed when every gate holds):
+
+    * (a) every (colour type, bit depth) pair PNG allows, plain and
+      Adam7, at 37x53 (``png_depth_files``, this script's own encoder:
+      numpy and ``zlib``, every filter type): the codec on the card's
+      host gives Pillow's array by its rule and its pinned digest;
+    * (b) decode seconds at 2048x3072 against budgets: the pair as
+      16-bit gray of Paeth rows, one 16-bit RGB image of Paeth rows,
+      the RGB image as 8-bit Adam7 of Paeth rows, each exact;
+    * (c) ex01 cold in a subprocess (``python3 -m ...`` with no
+      ``--device``, ``--cache``) on the 16-bit gray pair: exit 0, the
+      two-view gates, its matches, counts, cloud and ``rect-*`` files
+      identical to the byte to ``run_two_view_arrays`` on the codec's
+      ``uint16`` decodes; in-process, ``run_two_view`` from the files
+      against the arrays, identical (matches, inliers, E, points, the
+      cloud's integer-branch colours, step 5's float-branch pixels);
+      K1, K2 and K3 launched in these in-process runs;
+    * (d) ``run_two_view`` from the RGB pair as 8-bit Adam7 files (the
+      two-view gates), and from 480x640 pairs as 1-bit (``bool``) and
+      4-bit gray, each identical to the byte to its array path, or
+      both raising the same ``ValueError`` when RANSAC gets too few
+      matches;
+    * (e) ex02 cold in a subprocess on the 10 rendered 480x640 views as
+      16-bit gray, ``--pairs sequential``: every pair ``success``, ATE
+      under 2% of the span, ``poses.txt`` and ``sparse_cloud.ply``
+      identical to the byte to ``run_sfm_arrays`` on the decodes;
+    * (f) the small pair as 16-bit gray on the card and on the CPU, both
+      given the same RANSAC sample tables: keypoints, matches and
+      consensus agree as ``cpu_parity`` holds them.
+
+    Returns the launches of the phase's in-process runs by wrapper."""
+    import shutil
+    import tempfile
+
+    from spectavi_tpu_torch.mvg import ransac as tran
+    from spectavi_tpu_torch.pipeline import io as pio
+    from spectavi_tpu_torch.pipeline.sfm import run_sfm_arrays
+    from spectavi_tpu_torch.pipeline.two_view import run_two_view, run_two_view_arrays
+    from spectavi_tpu_torch.sfm import ate_rmse, camera_centers
+
+    grays, colors, K, (R_gt, t_gt) = pair
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    pd_dir = tempfile.mkdtemp(prefix="png-depths-", dir=os.path.join(ROOT, "build"))
+    d = lambda *p: os.path.join(pd_dir, *p)
+    for mod_ in wrappers.values():
+        mod_.launches = 0
+    out, bad = {"card": smi}, []
+
+    def gate(ok, name):
+        if not ok:
+            bad.append(name)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def gen(device="cuda"):
+        g = torch.Generator(device=device)
+        g.manual_seed(SEED)
+        return g
+
+    def write(path, data):
+        with open(path, "wb") as f:
+            f.write(data)
+
+    def decode(path):
+        pio._decode.cache_clear()
+        return pio.imread(path, dtype="uint8")
+
+    def decodes(paths):
+        pio._decode.cache_clear()
+        return ([pio.imread(p, dtype="float32", force_grayscale=True) for p in paths],
+                [pio.imread(p, dtype="uint8") for p in paths])
+
+    def files_vs_arrays(paths, kfile, tag):
+        """``run_two_view`` from ``paths`` (outputs in ``tag-files``)
+        against ``run_two_view_arrays`` on their decodes (``tag-arrays``):
+        ``(arrays result or None, {what: identical}, ValueError text)``."""
+        pio._decode.cache_clear()
+        try:
+            files = run_two_view(paths, kfile, outdir=d(f"{tag}-files"), generator=gen(),
+                                 quiet=True)
+        except ValueError as e:
+            files = e
+        dgrays, dcolors = decodes(paths)
+        try:
+            arrays = run_two_view_arrays(dgrays, dcolors, np.loadtxt(kfile), image_names=paths,
+                                         outdir=d(f"{tag}-arrays"), generator=gen(), quiet=True)
+        except ValueError as e:
+            arrays = e
+        if isinstance(files, ValueError) or isinstance(arrays, ValueError):
+            same = {"value_error": isinstance(files, ValueError) and isinstance(arrays, ValueError)
+                    and str(files) == str(arrays)}
+            return None, same, str(arrays)
+        same = {k: same_bytes(np, files[k], arrays[k]) for k in ("matches", "points", "rectified")}
+        same["inliers"] = same_bytes(np, files["ransac"]["inlier_idx"],
+                                     arrays["ransac"]["inlier_idx"])
+        same["essential"] = same_bytes(np, files["ransac"]["essential"],
+                                       arrays["ransac"]["essential"])
+        names = ["sparse_inliers.ply"] + ["rect-" + os.path.basename(p) for p in paths]
+        for n in names:
+            same[n] = file_bytes(d(f"{tag}-files", n)) == file_bytes(d(f"{tag}-arrays", n))
+        return arrays, same, None
+
+    # (a) every depth and colour type, plain and Adam7, against Pillow's rule and digest
+    failed = []
+    for (name, interlace), (data, want) in png_depth_files(np).items():
+        got = pio._read_png(data)
+        if not (got.dtype == want.dtype and got.shape == want.shape and np.array_equal(got, want)
+                and png_digest(got) == PNG_DEPTH_SHA256[name]):
+            failed.append(name + ("-adam7" if interlace else ""))
+    gate(not failed, f"digests: {failed}")
+    out["digests"] = {"files": 2 * len(PNG_DEPTH_CASES), "failed": failed}
+
+    # (b) decode seconds at the pair's size
+    g16 = [to_depth(np, g, 16, SEED + i) for i, g in enumerate(grays)]
+    rgb8 = [as_rgb(np, c) for c in colors]
+    paths = [d(f"pair{i}.png") for i in (0, 1)]
+    kfile = d("K.txt")
+    np.savetxt(kfile, K)
+    enc = {}
+    for p, g in zip(paths, g16):
+        data, enc["gray16_paeth"] = timed(lambda: png_encode(np, g, 0, 16, [4]))
+        write(p, data)
+    rgb16 = to_depth(np, rgb8[0] / 255.0, 16, SEED + 2)
+    data, enc["rgb16_paeth"] = timed(lambda: png_encode(np, rgb16, 2, 16, [4]))
+    write(d("rgb16.png"), data)
+    apaths = [d(f"adam7-{i}.png") for i in (0, 1)]
+    for p, c in zip(apaths, rgb8):
+        data, enc["rgb8_adam7_paeth"] = timed(lambda: png_encode(np, c, 2, 8, [4], interlace=1))
+        write(p, data)
+    dec, exact = {}, {}
+    for i, p in enumerate(paths):
+        im, dec[f"gray16_paeth_{i}"] = timed(lambda: decode(p))
+        exact[f"gray16_paeth_{i}"] = same_bytes(np, im, g16[i])
+    im, dec["rgb16_paeth"] = timed(lambda: decode(d("rgb16.png")))
+    exact["rgb16_paeth"] = same_bytes(np, im, (rgb16 >> 8).astype(np.uint8))
+    for i, p in enumerate(apaths):
+        im, dec[f"rgb8_adam7_paeth_{i}"] = timed(lambda: decode(p))
+        exact[f"rgb8_adam7_paeth_{i}"] = same_bytes(np, im, rgb8[i])
+    for key, secs in dec.items():
+        budget = PNG_DECODE_BUDGET_S[key.rsplit("_", 1)[0] if key[-1].isdigit() else key]
+        gate(exact[key] and secs < budget, f"decode_{key}")
+    out["codec"] = {"shape": [int(v) for v in g16[0].shape], "decode_s": dec, "encode_s": enc,
+                    "budget_s": PNG_DECODE_BUDGET_S, "exact": exact,
+                    "bytes": {"gray16_paeth": os.path.getsize(paths[0]),
+                              "rgb16_paeth": os.path.getsize(d("rgb16.png")),
+                              "rgb8_adam7_paeth": os.path.getsize(apaths[0])}}
+
+    # (c) ex01 cold from the 16-bit gray pair, as a user runs it
+    cli_s, _ = run_cli("spectavi_tpu_torch.pipeline.ex01",
+                       [*paths, kfile, "--outdir", d("ex01_cli"), "--seed", str(SEED), "--cache"])
+    for mod_ in wrappers.values():
+        mod_.launches = 0
+    (arrays, same, _), warm_s = timed(lambda: files_vs_arrays(paths, kfile, "gray16"))
+    launches_c = {name: mod_.launches for name, mod_ in wrappers.items()}
+    gate(all(v > 0 for v in launches_c.values()), "ex01_launches")
+    gate(all(same.values()), "gray16_files_vs_arrays")
+    dcolors = decodes(paths)[1]
+    gate(all(c.dtype == np.uint16 for c in dcolors), "gray16_decodes_uint16")
+    names = ("sparse_inliers.ply", "rect-pair0.png", "rect-pair1.png", "metrics.json",
+             "cache.npz")
+    gate(all(os.path.getsize(d("ex01_cli", n)) > 0 for n in names), "ex01_cli_outputs")
+    cli_same, _, rect_shape = cli_vs_arrays(np, d("ex01_cli"), d("gray16-arrays"), arrays, names)
+    gate(all(cli_same.values()), "cli_vs_arrays")
+    # gray rect-* files: the rectified (H, W, 1) pixels, read back as (H, W)
+    gate(all(same_bytes(np, pio.imread(d("ex01_cli", n), dtype="uint8"), r[..., 0])
+             for n, r in zip(names[1:3], arrays["rectified"][:2])), "rect_read_back")
+    m = arrays["metrics"]
+    gate(m["consensus"] >= 0.8, "consensus")
+    try:
+        rot, t_err = check_two_view(np, arrays, R_gt, t_gt)
+    except AssertionError as e:
+        rot = t_err = None
+        gate(False, f"two_view: {e}")
+    out["ex01_gray16"] = {"cold_cli_s": cli_s, "files_and_arrays_s": warm_s,
+                          "identical": {**same, **{"cli_" + k: v for k, v in cli_same.items()}},
+                          "keypoints": m["keypoints"], "n_matches": m["n_matches"],
+                          "n_inliers": m["n_inliers"], "consensus": m["consensus"],
+                          "rotation_err_deg": rot, "translation_err_deg": t_err,
+                          "rect_shape": rect_shape, "launches": launches_c}
+
+    # (d) the RGB pair as 8-bit Adam7; 480x640 pairs at 1 and 4 bits
+    arrays, same, _ = files_vs_arrays(apaths, kfile, "adam7")
+    gate(all(same.values()), "adam7_files_vs_arrays")
+    try:
+        rot, t_err = check_two_view(np, arrays, R_gt, t_gt)
+    except (AssertionError, TypeError) as e:
+        rot = t_err = None
+        gate(False, f"adam7_two_view: {e}")
+    out["ex01_adam7_rgb8"] = {"identical": same, "n_inliers": arrays["metrics"]["n_inliers"],
+                              "consensus": arrays["metrics"]["consensus"],
+                              "rotation_err_deg": rot, "translation_err_deg": t_err}
+    lg, _, lK, _ = render_pair(SFM_H, SFM_W, "cuda", SFM_TEX)
+    np.savetxt(d("Kl.txt"), lK)
+    for depth in (1, 4):
+        lpaths = [d(f"gray{depth}-{i}.png") for i in (0, 1)]
+        for i, (p, g) in enumerate(zip(lpaths, lg)):
+            write(p, png_encode(np, to_depth(np, g, depth, SEED + 10 * depth + i), 0, depth,
+                                [0, 1, 2, 3, 4]))
+        dtype = decodes(lpaths)[1][0].dtype
+        arrays, same, err = files_vs_arrays(lpaths, d("Kl.txt"), f"gray{depth}")
+        gate(all(same.values()) and dtype == (np.bool_ if depth == 1 else np.uint8),
+             f"gray{depth}_files_vs_arrays")
+        out[f"ex01_gray{depth}"] = {"dtype": str(dtype), "identical": same,
+                                    "value_error": err} | ({} if arrays is None else {
+            "n_matches": arrays["metrics"]["n_matches"],
+            "n_inliers": arrays["metrics"]["n_inliers"],
+            "consensus": arrays["metrics"]["consensus"]})
+
+    # (e) ex02 cold from the 10 views as 16-bit gray
+    vgrays, _, vK, poses = render_views(SFM_VIEWS, SFM_H, SFM_W, "cuda", SFM_TEX)
+    gt_C = np.array([C for _, _, C in poses])
+    vpaths = [d(f"v{i:02d}.png") for i in range(SFM_VIEWS)]
+    for i, (p, g) in enumerate(zip(vpaths, vgrays)):
+        write(p, png_encode(np, to_depth(np, g, 16, SEED + 100 + i), 0, 16, [1, 2, 3, 4]))
+    np.savetxt(d("Kv.txt"), vK)
+    secs, _ = run_cli("spectavi_tpu_torch.pipeline.ex02",
+                      [*vpaths, d("Kv.txt"), "--pairs", "sequential", "--outdir", d("ex02_cli"),
+                       "--seed", str(SEED)])
+    with open(d("ex02_cli", "metrics.json")) as f:
+        sm = json.load(f)
+    cams = np.loadtxt(d("ex02_cli", "poses.txt"))
+    share = ate_rmse(camera_centers(cams), gt_C) / np.ptp(gt_C, axis=0).max()
+    gate(len(sm["pairs"]) == SFM_VIEWS - 1 and all(p.get("success") for p in sm["pairs"])
+         and share < 0.02, "ex02")
+    sgrays = decodes(vpaths)[0]
+    res, arrays_s = timed(lambda: run_sfm_arrays(sgrays, np.loadtxt(d("Kv.txt")),
+                                                 outdir=d("ex02_arrays"), generator=gen(),
+                                                 quiet=True))
+    ex02_same = {n: file_bytes(d("ex02_cli", n)) == file_bytes(d("ex02_arrays", n))
+                 for n in ("poses.txt", "sparse_cloud.ply")}
+    gate(all(ex02_same.values()), "ex02_cli_vs_arrays")
+    out["ex02_gray16"] = {"cold_cli_s": secs, "arrays_s": arrays_s, "pairs": len(sm["pairs"]),
+                          "failed_pairs": [p["pair"] for p in sm["pairs"] if not p.get("success")],
+                          "init_used": sm["init_used"], "tracks": sm["n_tracks"],
+                          "ate_share": share, "identical": ex02_same,
+                          "tracks_arrays": res["metrics"]["n_tracks"]}
+
+    # (f) the small pair as 16-bit gray on the card and on the CPU
+    sg, _, sK, _ = small
+    spaths = [d(f"small{i}.png") for i in (0, 1)]
+    for i, (p, g) in enumerate(zip(spaths, sg)):
+        write(p, png_encode(np, to_depth(np, g, 16, SEED + 200 + i), 0, 16, [4]))
+    np.savetxt(d("Ks.txt"), sK)
+    # RANSAC's consensus on this pair spans 0.50-0.64 over generator
+    # seeds, so both devices take the same sample tables, drawn on the
+    # host: what differs is the device, not the random stream
+    draw = tran.sample_subsets
+    par = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            host = torch.Generator()
+            host.manual_seed(SEED)
+            tran.sample_subsets = lambda n, trials, mask, generator=None: draw(
+                n, trials, mask.cpu(), host).to(mask.device)
+            pio._decode.cache_clear()
+            r = run_two_view(spaths, d("Ks.txt"), outdir=None, matching_method="l2-mxu",
+                             generator=gen(dev), quiet=True, device=dev)["metrics"]
+            par[dev] = {k: r[k] for k in ("keypoints", "n_matches", "consensus")}
+    finally:
+        tran.sample_subsets = draw
+    g_res, c_res = par["cuda"], par["cpu"]
+    gate(all(abs(a - b) <= 0.02 * b for a, b in zip(g_res["keypoints"], c_res["keypoints"]))
+         and abs(g_res["n_matches"] - c_res["n_matches"]) <= max(2, 0.03 * c_res["n_matches"])
+         and abs(g_res["consensus"] - c_res["consensus"]) <= 0.05, "cpu_parity")
+    out["cpu_parity"] = {"shape": [int(v) for v in sg[0].shape], **par}
+
+    launches = {name: mod_.launches for name, mod_ in wrappers.items()}
+    gate(all(v > 0 for v in launches.values()), "launches")
+    emit("png_depths", launches=launches, failed=bad, **out)
+    if bad:
+        raise AssertionError(f"the png_depths phase failed on {bad} (files in {pd_dir})")
+    shutil.rmtree(pd_dir)
+    return launches
+
+
 # --- distribution over torch.distributed ----------------------------
 
 # the distributed phase's jobs: backend, ranks, matching meshes (n_pairs, n_blocks).
@@ -2413,6 +2901,11 @@ def main(argv):
     t0 = time.perf_counter()
     launches_progressive = phase_jpeg_progressive(torch, np, wrappers, smi)
     phase_s["jpeg_progressive"] = time.perf_counter() - t0
+    # ex01 and ex02 from PNG of 1, 2, 4 and 16 bits and Adam7
+    t0 = time.perf_counter()
+    launches_png = phase_png_depths(torch, np, (grays, colors, K, (R_gt, t_gt)), small,
+                                    wrappers, smi)
+    phase_s["png_depths"] = time.perf_counter() - t0
     # the mesh layer in worker processes, each counting its own launches
     t0 = time.perf_counter()
     launches_dist = phase_distributed(torch, np, warm_sfm, sfm_K, step_capture, smi)
@@ -2438,6 +2931,7 @@ def main(argv):
             "launches_entry_points": launches_entry[name],
             "launches_jpeg": launches_jpeg[name],
             "launches_jpeg_progressive": launches_progressive[name],
+            "launches_png_depths": launches_png[name],
             # by rank, in each job of the distributed phase
             "launches_dist": {job: counts[name] for job, counts in launches_dist.items()},
         })

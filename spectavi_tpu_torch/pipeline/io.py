@@ -7,10 +7,14 @@ PNG and JPEG go through codecs of the port's own, so the pipelines run
 from PNG and JPEG files on machines without Pillow:
 
 * PNG (numpy and the standard library's ``zlib``): :func:`imread` reads
-  8-bit non-interlaced PNG of colour types 0, 2, 3, 4 and 6 to exactly
-  the array ``np.asarray(PIL.Image.open(f))`` gives (palette images as
-  their indices), and :func:`imsave` writes 8-bit gray, gray + alpha,
-  RGB and RGBA PNG.
+  every PNG the standard allows (gray at 1, 2, 4, 8 and 16 bits, RGB,
+  gray + alpha and RGBA at 8 and 16, palette at 1, 2, 4 and 8, each
+  plain or Adam7-interlaced) to exactly the array
+  ``np.asarray(PIL.Image.open(f))`` gives: 1-bit gray as ``bool``, 2-
+  and 4-bit gray scaled to 0-255, 16-bit gray as ``uint16``, the other
+  16-bit types as their high bytes (gray + alpha as RGBA), palette
+  images as their indices.  :func:`imsave` writes 8-bit gray,
+  gray + alpha, RGB and RGBA PNG.
 * JPEG (host C++, :mod:`spectavi_tpu_torch.pipeline.jpeg`, compiled at
   first use): :func:`imread` reads baseline and progressive Huffman
   JPEG at 8 bits, gray or colour at any integral sampling factors, to
@@ -18,11 +22,10 @@ from PNG and JPEG files on machines without Pillow:
   ``.jpeg`` file that Pillow writes (baseline, quality 75, 4:2:0 for
   RGB).
 
-Other formats, and the variants the codecs do not read, go through
-Pillow: PNG of other bit depths or interlaced; arithmetic-coded,
-lossless, hierarchical or 12-bit JPEG, CMYK and YCCK, non-integral
-sampling factors, and progressive files whose scans leave coefficients
-unrefined.
+Other formats, and the JPEG variants the codec does not read, go
+through Pillow: arithmetic-coded, lossless, hierarchical or 12-bit
+JPEG, CMYK and YCCK, non-integral sampling factors, and progressive
+files whose scans leave coefficients unrefined.
 """
 
 from __future__ import annotations
@@ -76,8 +79,12 @@ def rgb_to_gray(rgb, dtype=np.float64):
 
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# channels of each colour type the codec reads, at 8 bits a sample
-_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# channels and allowed bit depths of each colour type
+_PNG_FORMATS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+                4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7's seven passes: first row, first column, row step, column step
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+          (1, 0, 2, 1))
 # colour type the writer gives each channel count
 _PNG_TYPE_OF = {1: 0, 2: 4, 3: 2, 4: 6}
 
@@ -184,15 +191,46 @@ def _png_unfilter(raw, bpp):
                       strides=((H + 2) * bpp * isz, (H + 1) * bpp * isz, isz)).astype(np.uint8)
 
 
+def _png_samples(rows, width, depth, channels):
+    """Unfiltered rows ``(H, bytes)`` uint8 as samples ``(H, width,
+    channels)``: below 8 bits unpacked most significant bits first, the
+    row's padding bits dropped; 16 bits big-endian to native uint16."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows.reshape(h, width, channels)
+    if depth == 16:
+        return rows.view(">u2").reshape(h, width, channels).astype(np.uint16)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    samples = (rows[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
+    return samples.reshape(h, -1)[:, :width, None]
+
+
+def _as_pillow(samples, depth, ctype):
+    """Samples ``(H, W, C)`` as Pillow gives the image: palette indices
+    as they are, gray at 1 bit as ``bool`` and at 2 and 4 bits scaled to
+    0-255, gray at 16 bits as ``uint16``, the other 16-bit types as
+    their high bytes, gray + alpha at 16 bits as RGBA."""
+    if ctype in (0, 3):
+        samples = samples[..., 0]
+        if ctype == 0 and depth == 1:
+            return samples != 0
+        if ctype == 0 and depth < 8:
+            return samples * np.uint8(255 // ((1 << depth) - 1))
+        return samples
+    if depth == 16:
+        samples = (samples >> 8).astype(np.uint8)
+        if ctype == 4:
+            return samples[..., [0, 0, 0, 1]]
+    return samples
+
+
 def _read_png(data):
-    """The pixels of an 8-bit non-interlaced PNG, as Pillow's array, or
-    None for the variants the codec leaves to Pillow (other bit depths,
-    interlaced)."""
+    """The pixels of a PNG file as Pillow's array (every bit depth and
+    colour type, plain or Adam7-interlaced); ``ValueError`` for a file
+    that is not valid PNG."""
     w, h, depth, ctype, interlace = _png_header(data)
-    if depth != 8 or interlace:
-        return None
-    if ctype not in _PNG_CHANNELS:
-        raise ValueError(f"PNG colour type {ctype} is not one of 0, 2, 3, 4, 6")
+    if ctype not in _PNG_FORMATS or depth not in _PNG_FORMATS[ctype][1]:
+        raise ValueError(f"PNG colour type {ctype} at {depth} bits is not a valid pair")
     idat, seen, plte = [], [], False
     for name, body in _png_chunks(data):
         if name == b"IDAT":
@@ -206,13 +244,39 @@ def _read_png(data):
         raise ValueError("PNG has no IDAT chunk")
     if ctype == 3 and not plte:
         raise ValueError("palette PNG has no PLTE chunk")
-    bpp = _PNG_CHANNELS[ctype]
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) != h * (1 + w * bpp):
-        raise ValueError(f"PNG image data holds {len(raw)} bytes, {h * (1 + w * bpp)} "
-                         f"expected for {w}x{h}x{bpp}")
-    im = _png_unfilter(np.frombuffer(raw, np.uint8).reshape(h, 1 + w * bpp), bpp)
-    return im[..., 0] if bpp == 1 else im
+    channels = _PNG_FORMATS[ctype][0]
+    bits = depth * channels
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"PNG image data does not inflate: {e}") from e
+    # each pass with pixels: (first row, first column, row step, column
+    # step, rows, pixels a row, bytes a row with its filter type)
+    passes = []
+    for y0, x0, dy, dx in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        ph, pw = -(-(h - y0) // dy), -(-(w - x0) // dx)
+        if ph > 0 and pw > 0:
+            passes.append((y0, x0, dy, dx, ph, pw, 1 + (pw * bits + 7) // 8))
+    need = sum(p[4] * p[6] for p in passes)
+    if raw.size != need:
+        raise ValueError(f"PNG image data holds {raw.size} bytes, {need} expected for {w}x{h} "
+                         f"at {depth} bits, colour type {ctype}, interlace {interlace}")
+    # the filters read the byte a pixel to the left (one byte below 8
+    # bits); each pass is an image of its own, its first row filtered
+    # against zeros, scattered into the frame
+    bpp = max(1, bits // 8)
+    samples, pos = None, 0
+    for y0, x0, dy, dx, ph, pw, row in passes:
+        rows = _png_unfilter(raw[pos:pos + ph * row].reshape(ph, row), bpp).reshape(ph, -1)
+        pos += ph * row
+        sub = _png_samples(rows, pw, depth, channels)
+        if not interlace:
+            samples = sub
+        else:
+            if samples is None:
+                samples = np.empty((h, w, channels), sub.dtype)
+            samples[y0::dy, x0::dx] = sub
+    return _as_pillow(samples, depth, ctype)
 
 
 def _pillow():
@@ -220,9 +284,9 @@ def _pillow():
         from PIL import Image
     except ImportError as e:
         raise ImportError(
-            "this image format needs Pillow, which is not installed; baseline "
-            "and progressive JPEG and 8-bit non-interlaced PNG are read without "
-            "it (and JPEG and PNG written)") from e
+            "this image format needs Pillow, which is not installed; PNG and "
+            "baseline and progressive JPEG are read without it (and JPEG and "
+            "8-bit PNG written)") from e
     return Image
 
 
@@ -230,17 +294,16 @@ def _pillow():
 def _decode(filename, mtime):
     """Decoded raw pixel array, cached: the pipeline reads each image
     for SIFT (grayscale), rectification (color) and PLY colors.  PNG
-    and JPEG that the codecs read never go to Pillow."""
+    never goes to Pillow (a malformed file raises ``ValueError``), nor
+    does JPEG that the codec reads."""
     with open(filename, "rb") as f:
         data = f.read()
     if data[:8] == PNG_SIGNATURE:
         im = _read_png(data)
-    elif data[:2] == b"\xff\xd8":
-        im = read_jpeg(data)
     else:
-        im = None
-    if im is None:
-        im = np.asarray(_pillow().open(filename))
+        im = read_jpeg(data) if data[:2] == b"\xff\xd8" else None
+        if im is None:
+            im = np.asarray(_pillow().open(filename))
     im.flags.writeable = False
     return im
 

@@ -20,6 +20,9 @@ rendered view is).  For each, the best of ``--repeat`` runs of:
   row-at-a-time path);
 * ``step5_write``: both ``rect-*`` files of a gray pair, the codec
   against Pillow;
+* ``depths``: the codec's and Pillow's decode of the gray and RGB images
+  as 16-bit files and of the RGB image as an 8-bit Adam7 file, every
+  row Paeth filtered, with the file's size;
 * ``jpeg``: for gray and RGB with pixel noise and the smooth gray, at
   quality 75 (Pillow's default) and 95, the JPEG writer against Pillow's
   ``Image.save`` (the files must be the same bytes) and the JPEG decoder
@@ -61,26 +64,39 @@ def texture(rng, h, w, pixel_noise=2.0):
     return ((tex - tex.min()) / np.ptp(tex) * 255).astype(np.uint8)
 
 
-def encode(arr, filt, level):
+def encode(arr, filt, level, interlace=0):
     """A PNG file's bytes, every row filtered by ``filt`` ("none",
-    "sub", "up" or "paeth") and compressed at ``level``."""
+    "sub", "up" or "paeth") and compressed at ``level``: 8-bit from
+    uint8 ``arr``, 16-bit from uint16, Adam7-interlaced when
+    ``interlace``."""
     h, w = arr.shape[:2]
-    x = arr.reshape(h, w, -1).astype(np.int16)
-    a = np.zeros_like(x)
-    a[:, 1:] = x[:, :-1]
-    b = np.zeros_like(x)
-    b[1:] = x[:-1]
-    c = np.zeros_like(x)
-    c[1:, 1:] = x[:-1, :-1]
-    pred = {"none": 0, "sub": a, "up": b, "paeth": None}[filt]
-    if filt == "paeth":
-        pred = pio._paeth(a, b, c)
-    rows = np.empty((h, 1 + x.shape[1] * x.shape[2]), np.uint8)
-    rows[:, 0] = ("none", "sub", "up", "average", "paeth").index(filt)
-    rows[:, 1:] = ((x - pred) & 255).reshape(h, -1)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, pio._PNG_TYPE_OF[x.shape[2]], 0, 0, 0)
+    depth = 16 if arr.dtype == np.uint16 else 8
+    channels = arr.reshape(h, w, -1).shape[2]
+    parts = []
+    for y0, x0, dy, dx in pio._ADAM7 if interlace else ((0, 0, 1, 1),):
+        sub = arr[y0::dy, x0::dx]
+        if not sub.size:
+            continue
+        x = sub.reshape(sub.shape[0], sub.shape[1], -1)
+        if depth == 16:  # a pixel's big-endian bytes
+            x = x.astype(">u2").view(np.uint8).reshape(x.shape[0], x.shape[1], -1)
+        x = x.astype(np.int16)
+        a = np.zeros_like(x)
+        a[:, 1:] = x[:, :-1]
+        b = np.zeros_like(x)
+        b[1:] = x[:-1]
+        c = np.zeros_like(x)
+        c[1:, 1:] = x[:-1, :-1]
+        pred = {"none": 0, "sub": a, "up": b, "paeth": None}[filt]
+        if filt == "paeth":
+            pred = pio._paeth(a, b, c)
+        rows = np.empty((x.shape[0], 1 + x.shape[1] * x.shape[2]), np.uint8)
+        rows[:, 0] = ("none", "sub", "up", "average", "paeth").index(filt)
+        rows[:, 1:] = ((x - pred) & 255).reshape(x.shape[0], -1)
+        parts.append(rows.tobytes())
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, pio._PNG_TYPE_OF[channels], 0, 0, interlace)
     return (pio.PNG_SIGNATURE + pio._png_chunk(b"IHDR", ihdr)
-            + pio._png_chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+            + pio._png_chunk(b"IDAT", zlib.compress(b"".join(parts), level))
             + pio._png_chunk(b"IEND", b""))
 
 
@@ -134,8 +150,33 @@ def main(argv=None):
         out["step5_write_s"] = {
             "codec": best(lambda: [pio.imsave(codec_f, r) for r in pair], args.repeat),
             "pillow": best(lambda: [Image.fromarray(r).save(pil_f) for r in pair], args.repeat)}
+        out["depths"] = depth_times(Image, images, rng, tmp, args.repeat)
         out["jpeg"] = jpeg_times(Image, images, tmp, args.repeat)
     print(json.dumps(out))
+
+
+def depth_times(Image, images, rng, tmp, repeat):
+    """The codec's and Pillow's decode of the gray and RGB images as
+    16-bit files of Paeth rows (a random low byte a sample) and of the
+    RGB image as an 8-bit Adam7 file of Paeth rows: ``{file: {read_s,
+    bytes}}``, each array checked equal to Pillow's."""
+    wide = {k: (images[k].astype(np.uint16) << 8)
+            | rng.integers(0, 256, images[k].shape, dtype=np.uint16) for k in ("gray", "rgb")}
+    files = {"gray16_paeth": encode(wide["gray"], "paeth", 6),
+             "rgb16_paeth": encode(wide["rgb"], "paeth", 6),
+             "rgb_adam7_paeth": encode(images["rgb"], "paeth", 6, interlace=1)}
+    out = {}
+    for name, data in files.items():
+        f = os.path.join(tmp, f"{name}.png")
+        with open(f, "wb") as fh:
+            fh.write(data)
+        ref = np.asarray(Image.open(f))
+        got = pio._read_png(data)
+        assert got.dtype == ref.dtype and np.array_equal(got, ref)
+        out[name] = {"read_s": {"codec": best(lambda: pio._read_png(open(f, "rb").read()), repeat),
+                                "pillow": best(lambda: np.asarray(Image.open(f)), repeat)},
+                     "bytes": len(data)}
+    return out
 
 
 def jpeg_times(Image, images, tmp, repeat):

@@ -1,24 +1,32 @@
 """The port's PNG codec (``spectavi_tpu_torch.pipeline.io``) against Pillow.
 
-* Decode: every colour type the codec reads (gray, RGB, palette,
-  gray + alpha, RGBA), each with every row written with one of the five
-  filters, with a random filter a row over several IDAT chunks beside
-  ancillary chunks, and as Pillow saves it, gives exactly Pillow's array
-  (``np.asarray(Image.open(f))``): values, dtype and shape.  Pillow has no
-  option that forces a row filter, so those files come from this file's
-  own encoder (``_png``) and Pillow's decode is the reference.  The
-  repository's own PNGs agree too.
+* Decode: every colour type at 8 bits (gray, RGB, palette, gray + alpha,
+  RGBA), each with every row written with one of the five filters, with
+  a random filter a row over several IDAT chunks beside ancillary
+  chunks, and as Pillow saves it, gives exactly Pillow's array
+  (``np.asarray(Image.open(f))``): values, dtype and shape.  Pillow has
+  no option that forces a row filter, so those files come from this
+  file's own encoder (``_png``: any bit depth, Adam7, any filter a row)
+  and Pillow's decode is the reference.  The repository's own PNGs agree
+  too.  ``tests/test_torch_png_depths.py`` holds the other bit depths
+  and Adam7 to Pillow.
 * The writer (``imsave``): gray, gray + alpha, RGB and RGBA files that
   Pillow reads back to the same pixels.
-* The variants the codecs do not read (16-bit, interlaced, a progressive
-  JPEG cut after its second scan, whose coefficients stay unrefined) go
-  to Pillow; malformed files raise.
+* The variants that went to Pillow before the codec read them: 16-bit
+  and interlaced PNG now decode in the codec, with Pillow unreachable; a
+  progressive JPEG cut after its second scan (coefficients left
+  unrefined) still goes to Pillow.  Malformed files raise
+  ``ValueError``: a bad CRC, a truncated file, no IDAT, a bad filter
+  type, too little data, a colour type and bit depth PNG does not pair,
+  image data that does not inflate, an Adam7 stream one byte short,
+  sub-byte rows of the wrong length.
 * With Pillow blocked (``sys.modules["PIL"] = None``, in a subprocess):
-  ``imread`` of a PNG and of a baseline JPEG works, and of such a cut
-  progressive JPEG raises an ``ImportError`` that names Pillow; ex01 and
-  ex02 run from PNG files on the CPU and write
-  their outputs; ex01 ``--plots`` with matplotlib blocked raises before
-  SIFT runs.
+  ``imread`` of an 8-bit, a 16-bit and an Adam7 PNG and of a baseline
+  JPEG works, and of such a cut progressive JPEG raises an
+  ``ImportError`` that names Pillow; ex01 from 8-bit, 16-bit and Adam7
+  pairs and ex02 from 8-bit, 16-bit and Adam7 views run on the CPU and
+  write what the runs with Pillow present write; ex01 ``--plots`` with
+  matplotlib blocked raises before SIFT runs.
 """
 
 import io
@@ -41,20 +49,43 @@ TYPES = {0: (1, "L"), 2: (3, "RGB"), 3: (1, "P"), 4: (2, "LA"), 6: (4, "RGBA")}
 PALETTE = bytes(np.random.default_rng(7).integers(0, 256, 3 * 40, dtype=np.uint8))
 
 
-def _pixels(rng, ctype, h=37, w=53):
-    """A smooth image with noise (so every predictor matters), as uint8."""
+def _pixels(rng, ctype, h=37, w=53, depth=8):
+    """A smooth image with noise (so every predictor matters), as
+    samples of ``depth`` bits: uint8, or uint16 at 16 bits."""
     ch = TYPES[ctype][0]
     if ctype == 3:
-        return rng.integers(0, 40, (h, w), dtype=np.uint8)
+        return rng.integers(0, min(40, 1 << depth), (h, w), dtype=np.uint8)
     x = np.cumsum(rng.integers(-9, 10, (h, w, ch)), axis=1) + np.cumsum(
         rng.integers(-9, 10, (h, 1, ch)), axis=0)
-    x = (x - x.min()) % 256
-    return x.astype(np.uint8)[..., 0] if ch == 1 else x.astype(np.uint8)
+    if depth == 16:  # 16 bits with signal in the low byte
+        x = (x * 211 + rng.integers(0, 256, x.shape)) % 65536
+    else:
+        x = (x - x.min()) % (1 << depth)
+    x = x.astype(np.uint16 if depth == 16 else np.uint8)
+    return x[..., 0] if ch == 1 else x
+
+
+def _pack(samples, depth, pad_bits=False):
+    """Rows of samples ``(h, w[, C])`` as the PNG stream stores them: 16
+    bits big-endian, below 8 bits packed most significant bits first,
+    the padding bits of each row's last byte set when ``pad_bits``."""
+    h, w = samples.shape[:2]
+    x = samples.reshape(h, -1)
+    if depth == 16:
+        return x.astype(">u2").view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return x.astype(np.uint8)
+    per = 8 // depth
+    n = -(-x.shape[1] // per)
+    padded = np.full((h, n * per), (1 << depth) - 1 if pad_bits else 0, np.int64)
+    padded[:, :x.shape[1]] = x
+    shifts = np.arange(8 - depth, -1, -depth)
+    return (padded.reshape(h, n, per) << shifts).sum(axis=2).astype(np.uint8)
 
 
 def _filter_row(cur, prev, f, bpp):
     """One row filtered with type ``f`` (the PNG specification's
-    formulas, byte by byte on the original pixels)."""
+    formulas, byte by byte on the original bytes)."""
     out = np.zeros(len(cur), np.int64)
     for i in range(len(cur)):
         a = int(cur[i - bpp]) if i >= bpp else 0
@@ -80,23 +111,40 @@ def _chunk(ctype, body):
         ">I", zlib.crc32(ctype + body))
 
 
-def _png(arr, ctype, filters, idat_parts=1, extra=()):
-    """A PNG of ``arr`` with row ``r`` filtered by ``filters[r]``, its
-    data split over ``idat_parts`` IDAT chunks, ``extra`` chunks
-    (name, body) written before the first."""
+# Adam7's passes: first row, first column, row step, column step
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+         (1, 0, 2, 1))
+
+
+def _png(arr, ctype, filters, idat_parts=1, extra=(), depth=8, interlace=0, pad_bits=False,
+         palette=PALETTE, raw_hook=None):
+    """A PNG of the samples ``arr`` at ``depth`` bits, Adam7-interlaced
+    when ``interlace``, the ``k``-th row of the stream (counting across
+    passes) filtered by ``filters[k % len(filters)]``, its data split
+    over ``idat_parts`` IDAT chunks, ``extra`` chunks (name, body)
+    written before the first; ``raw_hook`` edits the filtered stream
+    before it is compressed."""
     h, w = arr.shape[:2]
-    bpp = TYPES[ctype][0]
-    rows = arr.reshape(h, w * bpp)
-    prev = np.zeros(w * bpp, np.uint8)
-    raw = b""
-    for r in range(h):
-        raw += bytes([filters[r]]) + _filter_row(rows[r], prev, filters[r], bpp).tobytes()
-        prev = rows[r]
+    bpp = max(1, TYPES[ctype][0] * depth // 8)
+    raw, k = b"", 0
+    for y0, x0, dy, dx in ADAM7 if interlace else ((0, 0, 1, 1),):
+        sub = arr[y0::dy, x0::dx]
+        if not sub.size:
+            continue
+        rows = _pack(sub, depth, pad_bits)
+        prev = np.zeros(rows.shape[1], np.uint8)
+        for r in rows:
+            f = int(filters[k % len(filters)])
+            raw += bytes([f]) + _filter_row(r, prev, f, bpp).tobytes()
+            prev, k = r, k + 1
+    if raw_hook is not None:
+        raw = raw_hook(raw)
     comp = zlib.compress(raw)
     cut = np.linspace(0, len(comp), idat_parts + 1).astype(int)
-    out = pio.PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+    out = pio.PNG_SIGNATURE + _chunk(
+        b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
     if ctype == 3:
-        out += _chunk(b"PLTE", PALETTE)
+        out += _chunk(b"PLTE", palette)
     for name, body in extra:
         out += _chunk(name, body)
     for i in range(idat_parts):
@@ -164,22 +212,11 @@ def test_writer_refuses_other_arrays(tmp_path):
             pio.imsave(str(tmp_path / "x.png"), bad)
 
 
-def _adam7(arr):
-    """An interlaced (Adam7) 8-bit gray PNG of ``arr``, filter 0."""
-    h, w = arr.shape
-    raw = b""
-    for y0, x0, dy, dx in ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
-                           (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1)):
-        sub = arr[y0::dy, x0::dx]
-        if sub.size:
-            raw += b"".join(b"\x00" + r.tobytes() for r in sub)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 1)
-    return (pio.PNG_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(raw))
-            + _chunk(b"IEND", b""))
-
-
 @pytest.mark.parametrize("variant", ["16-bit", "interlaced", "progressive-jpeg"])
-def test_other_variants_go_to_pillow(tmp_path, variant):
+def test_other_variants_go_to_pillow(tmp_path, monkeypatch, variant):
+    """16-bit and interlaced PNG, which went to Pillow, decode in the
+    codec with Pillow unreachable; a progressive JPEG with coefficients
+    left unrefined still goes to Pillow."""
     from spectavi_tpu_torch.pipeline.jpeg import read_jpeg
     from test_torch_jpeg import cut_after_scan
 
@@ -189,18 +226,25 @@ def test_other_variants_go_to_pillow(tmp_path, variant):
     if variant == "16-bit":
         Image.fromarray(arr.astype(np.uint16) * 257).save(path)
     elif variant == "interlaced":
-        path.write_bytes(_adam7(arr))
+        path.write_bytes(_png(arr, 0, [0], interlace=1))
     else:
         f = io.BytesIO()
         Image.fromarray(arr).save(f, format="JPEG", quality=90, progressive=True)
         path.write_bytes(cut_after_scan(f.getvalue(), 2))
     if variant == "progressive-jpeg":
         assert read_jpeg(path.read_bytes()) is None
+        got = _same_as_pillow(path)
     else:
-        assert pio._read_png(path.read_bytes()) is None
-    got = _same_as_pillow(path)
-    if variant == "interlaced":
-        np.testing.assert_array_equal(got, arr)
+        def no_pillow():
+            raise AssertionError("the codec handed a PNG to Pillow")
+
+        monkeypatch.setattr(pio, "_pillow", no_pillow)
+        pio._decode.cache_clear()
+        assert pio._read_png(path.read_bytes()) is not None
+        got = _same_as_pillow(path)
+        np.testing.assert_array_equal(got.astype(np.int64) // (257 if variant == "16-bit" else 1),
+                                      arr)
+    assert got.dtype == (np.uint16 if variant == "16-bit" else np.uint8)
 
 
 def _corrupt(data, how):
@@ -219,10 +263,29 @@ def _corrupt(data, how):
     if how == "short-data":
         return (pio.PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 2, 8, 0, 0, 0, 0))
                 + _chunk(b"IDAT", zlib.compress(b"\x00" * 5)) + _chunk(b"IEND", b""))
+    arr = np.random.default_rng(6).integers(0, 2, (9, 11), dtype=np.uint8)
+    if how == "bad-depth":  # RGB at 4 bits: IHDR's table has no such pair
+        i = data.index(b"IHDR") + 4
+        ihdr = data[i:i + 8] + bytes([4, 2]) + data[i + 10:i + 13]
+        return data[:i - 8] + _chunk(b"IHDR", ihdr) + data[i + 17:]
+    if how == "inflate":  # image data that is not a zlib stream, its CRC intact
+        i = data.index(b"IDAT") - 4
+        n = struct.unpack(">I", data[i:i + 4])[0]
+        return data[:i] + _chunk(b"IDAT", bytes(n)) + data[i + 12 + n:]
+    if how == "adam7-short":
+        return _png(arr * 255, 0, [4], interlace=1, raw_hook=lambda raw: raw[:-1])
+    if how == "sub-byte-row-length":
+        # 1-bit rows written one byte a sample, as if they were 8-bit
+        data = _png(arr, 0, [1])
+        i = data.index(b"IHDR") + 4
+        ihdr = data[i:i + 8] + bytes([1]) + data[i + 9:i + 13]
+        return data[:i - 8] + _chunk(b"IHDR", ihdr) + data[i + 17:]
     raise ValueError(how)
 
 
-@pytest.mark.parametrize("how", ["crc", "truncated", "no-idat", "filter-type", "short-data"])
+@pytest.mark.parametrize("how", ["crc", "truncated", "no-idat", "filter-type", "short-data",
+                                 "bad-depth", "inflate", "adam7-short",
+                                 "sub-byte-row-length"])
 def test_malformed_png_raises(tmp_path, how):
     arr = np.random.default_rng(5).integers(0, 256, (9, 11), dtype=np.uint8)
     path = tmp_path / "bad.png"
@@ -257,7 +320,25 @@ def views(tmp_path_factory):
     return tmp, paths, kfile
 
 
-def test_imread_without_pillow(views, tmp_path):
+@pytest.fixture(scope="module")
+def depth_views(views):
+    """The views as 16-bit gray PNG (Pillow's encoder, a seeded dither in
+    the low byte) and as 8-bit Adam7 PNG (``_png``, every filter type)."""
+    import chip_smoke
+
+    tmp, paths, kfile = views
+    out = {"16-bit": [], "adam7": []}
+    for i, p in enumerate(paths):
+        u8 = np.asarray(Image.open(p))
+        out["16-bit"].append(str(tmp / f"g16-{i}.png"))
+        Image.fromarray(chip_smoke.to_depth(np, u8 / 255.0, 16, 40 + i)).save(out["16-bit"][-1])
+        out["adam7"].append(str(tmp / f"adam7-{i}.png"))
+        (tmp / f"adam7-{i}.png").write_bytes(_png(u8, 0, [0, 1, 2, 3, 4], interlace=1))
+    assert Image.open(out["16-bit"][0]).mode == "I;16"
+    return out
+
+
+def test_imread_without_pillow(views, depth_views, tmp_path):
     from test_torch_jpeg import cut_after_scan
 
     _, paths, _ = views
@@ -267,11 +348,15 @@ def test_imread_without_pillow(views, tmp_path):
     Image.fromarray(np.zeros((8, 8), np.uint8)).save(f, format="JPEG", progressive=True)
     # cut after its second scan: coefficients left unrefined go to Pillow
     progressive.write_bytes(cut_after_scan(f.getvalue(), 2))
+    pngs = [depth_views["16-bit"][0], depth_views["adam7"][0]]
     code = (
         "import numpy as np\n"
+        "from chip_smoke import png_digest\n"
         "from spectavi_tpu_torch.pipeline.io import imread\n"
         f"print(imread({paths[0]!r}, dtype='uint8').shape)\n"
         f"print('baseline', imread({str(jpg)!r}, dtype='uint8').tolist())\n"
+        f"for p in {pngs!r}:\n"
+        "    print('png', png_digest(imread(p, dtype='uint8')))\n"
         "try:\n"
         f"    imread({str(progressive)!r})\n"
         "except ImportError as e:\n"
@@ -280,31 +365,83 @@ def test_imread_without_pillow(views, tmp_path):
     assert out.returncode == 0, out.stderr
     assert "(120, 160)" in out.stdout
     assert f"baseline {np.asarray(Image.open(jpg)).tolist()}" in out.stdout
+    from chip_smoke import png_digest
+
+    for p in pngs:
+        assert f"png {png_digest(np.asarray(Image.open(p)))}" in out.stdout
     assert "ImportError:" in out.stdout and "Pillow" in out.stdout
 
 
-def test_ex01_without_pillow(views, tmp_path):
-    _, paths, kfile = views
-    out = tmp_path / "ex01"
-    res = _run_blocked(_cli("spectavi_tpu_torch.pipeline.ex01",
-                            [paths[0], paths[1], kfile, "--device", "cpu", "--outdir", str(out),
-                             "--reproj", "3e-3"]))
-    assert res.returncode == 0, res.stderr[-3000:]
-    for name in ("sparse_inliers.ply", "rect-v0.png", "rect-v1.png", "metrics.json"):
-        assert (out / name).stat().st_size > 0
-    for name in ("rect-v0.png", "rect-v1.png"):
-        assert np.asarray(Image.open(out / name)).dtype == np.uint8
+def _outputs(out, names):
+    """The bytes of the files a run wrote, and its metrics without the
+    timings and rates."""
+    import json
+
+    files = {n: (out / n).read_bytes() for n in names}
+    m = json.loads((out / "metrics.json").read_text())
+    return files, {k: v for k, v in m.items()
+                   if not k.endswith(("_seconds", "_per_second")) and k != "images"}
 
 
-def test_ex02_without_pillow(views, tmp_path):
+def _threads(code):
+    """``code`` run with the torch threads this process uses."""
+    return "import torch\ntorch.set_num_threads(2)\n" + code
+
+
+def test_ex01_without_pillow(views, depth_views, tmp_path):
+    """ex01 from the 8-bit, the 16-bit and the Adam7 pair with Pillow
+    blocked; the 16-bit and Adam7 runs write what the same runs with
+    Pillow present write."""
+    import torch
+
+    from spectavi_tpu_torch.pipeline import ex01
+
     _, paths, kfile = views
-    out = tmp_path / "ex02"
-    res = _run_blocked(_cli("spectavi_tpu_torch.pipeline.ex02",
-                            [*paths, kfile, "--device", "cpu", "--outdir", str(out),
-                             "--ba_iters", "3"]))
+    pairs = {"8-bit": paths[:2], "16-bit": depth_views["16-bit"][:2],
+             "adam7": depth_views["adam7"][:2]}
+    argv = lambda name, out: [*pairs[name], kfile, "--device", "cpu", "--outdir", str(out),
+                              "--reproj", "3e-3"]
+    res = _run_blocked(_threads("".join(
+        _cli("spectavi_tpu_torch.pipeline.ex01", argv(name, tmp_path / name)) for name in pairs)))
     assert res.returncode == 0, res.stderr[-3000:]
-    for name in ("sparse_cloud.ply", "poses.txt", "metrics.json"):
-        assert (out / name).stat().st_size > 0
+    for name in pairs:
+        out = tmp_path / name
+        for n in ("sparse_inliers.ply", "metrics.json"):
+            assert (out / n).stat().st_size > 0
+        stems = [os.path.basename(p) for p in pairs[name]]
+        for n in stems:
+            assert np.asarray(Image.open(out / f"rect-{n}")).dtype == np.uint8
+        if name != "8-bit":
+            torch.set_num_threads(2)
+            ex01.main(argv(name, tmp_path / f"{name}-pillow"))
+            names = ["sparse_inliers.ply"] + [f"rect-{n}" for n in stems]
+            assert _outputs(out, names) == _outputs(tmp_path / f"{name}-pillow", names)
+
+
+def test_ex02_without_pillow(views, depth_views, tmp_path):
+    """ex02 from the 8-bit, the 16-bit and the Adam7 views with Pillow
+    blocked; the 16-bit and Adam7 runs write what the same runs with
+    Pillow present write."""
+    import torch
+
+    from spectavi_tpu_torch.pipeline import ex02
+
+    _, paths, kfile = views
+    sets = {"8-bit": paths, "16-bit": depth_views["16-bit"], "adam7": depth_views["adam7"]}
+    argv = lambda name, out: [*sets[name], kfile, "--device", "cpu", "--outdir", str(out),
+                              "--ba_iters", "3"]
+    res = _run_blocked(_threads("".join(
+        _cli("spectavi_tpu_torch.pipeline.ex02", argv(name, tmp_path / name)) for name in sets)))
+    assert res.returncode == 0, res.stderr[-3000:]
+    names = ["sparse_cloud.ply", "poses.txt"]
+    for name in sets:
+        for n in names + ["metrics.json"]:
+            assert (tmp_path / name / n).stat().st_size > 0
+        if name != "8-bit":
+            torch.set_num_threads(2)
+            ex02.main(argv(name, tmp_path / f"{name}-pillow"))
+            assert _outputs(tmp_path / name, names) == _outputs(tmp_path / f"{name}-pillow",
+                                                                names)
 
 
 def test_plots_without_matplotlib_fail_before_sift(views, tmp_path):
