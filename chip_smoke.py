@@ -41,7 +41,9 @@ Phases, one JSON line each:
                 and ``nn_bruteforce`` (p = 0.5, and ``mu > 0``) on a
                 4000-row subset; each with its milliseconds;
 * ``cpu_parity`` the same pipeline on the small pair on the card and on
-                the CPU (plain versions): match counts and consensus agree;
+                the CPU (plain versions), both given the same RANSAC
+                sample tables drawn on the host: keypoint and match
+                counts and consensus agree;
 * ``profile``   one more warm run under ``torch.profiler``: device time
                 by kernel and the device's busy share;
 * ``sfm``       ``run_sfm_arrays`` on 10 rendered 480x640 views on the
@@ -109,6 +111,15 @@ Phases, one JSON line each:
                 views as 16-bit gray against ``run_sfm_arrays``, (f) the
                 small 16-bit pair on the card against the CPU
                 (``phase_png_depths``);
+* ``pillow_free_inputs`` the inputs that went to Pillow before the
+                port read them: (a) the progressive fixtures cut after
+                every scan, smoothed as libjpeg-turbo smooths them,
+                against Pillow's pinned digests, (b) ex01 cold from the
+                progressive pair cut after a middle scan, (c) ex01 cold
+                from the pair as 8-bit PPM and ex02 cold from the 10
+                views as 16-bit PGM, each identical to the byte to its
+                array path, (d) 24 small Netpbm files against Pillow's
+                pinned digests (``phase_pillow_free_inputs``);
 * ``distributed`` the mesh layer in worker processes (``--dist-worker``):
                 one NCCL rank and four gloo ranks, each with its own
                 launch counts (``dist_worker``);
@@ -118,9 +129,9 @@ Phases, one JSON line each:
                 ``launches_sfm`` / ``run_ms_sfm`` of the 10-view run,
                 ``launches_surface`` of the unmasked step,
                 ``launches_entry_points``, ``launches_jpeg``,
-                ``launches_jpeg_progressive`` and ``launches_png_depths``
-                of those phases' in-process runs and ``launches_dist`` by
-                job and rank.
+                ``launches_jpeg_progressive``, ``launches_png_depths``
+                and ``launches_pillow_free_inputs`` of those phases'
+                in-process runs and ``launches_dist`` by job and rank.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 last the contract line ``{"ok": true, "device": {...}}``.  Any failure
@@ -134,6 +145,7 @@ JAX is imported.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -2156,11 +2168,11 @@ def png_depth_files(np, seed=SEED):
 def to_depth(np, x01, depth, seed):
     """Floats in [0, 1] as integer samples of ``depth`` bits, with a
     seeded dither below one step (so the low byte of 16-bit samples
-    carries signal): uint16 at 16 bits, else uint8."""
+    carries signal): uint16 above 8 bits, else uint8."""
     top = (1 << depth) - 1
     u = np.random.default_rng(seed).random(np.shape(x01))
     q = np.clip(np.floor(np.asarray(x01, np.float64) * top + u), 0, top)
-    return q.astype(np.uint16 if depth == 16 else np.uint8)
+    return q.astype(np.uint16 if depth > 8 else np.uint8)
 
 
 def phase_png_depths(torch, np, pair, small, wrappers, smi):
@@ -2200,7 +2212,6 @@ def phase_png_depths(torch, np, pair, small, wrappers, smi):
     import shutil
     import tempfile
 
-    from spectavi_tpu_torch.mvg import ransac as tran
     from spectavi_tpu_torch.pipeline import io as pio
     from spectavi_tpu_torch.pipeline.sfm import run_sfm_arrays
     from spectavi_tpu_torch.pipeline.two_view import run_two_view, run_two_view_arrays
@@ -2414,27 +2425,14 @@ def phase_png_depths(torch, np, pair, small, wrappers, smi):
     for i, (p, g) in enumerate(zip(spaths, sg)):
         write(p, png_encode(np, to_depth(np, g, 16, SEED + 200 + i), 0, 16, [4]))
     np.savetxt(d("Ks.txt"), sK)
-    # RANSAC's consensus on this pair spans 0.50-0.64 over generator
-    # seeds, so both devices take the same sample tables, drawn on the
-    # host: what differs is the device, not the random stream
-    draw = tran.sample_subsets
     par = {}
-    try:
-        for dev in ("cuda", "cpu"):
-            host = torch.Generator()
-            host.manual_seed(SEED)
-            tran.sample_subsets = lambda n, trials, mask, generator=None: draw(
-                n, trials, mask.cpu(), host).to(mask.device)
-            pio._decode.cache_clear()
+    for dev in ("cuda", "cpu"):
+        pio._decode.cache_clear()
+        with host_ransac_tables(torch):
             r = run_two_view(spaths, d("Ks.txt"), outdir=None, matching_method="l2-mxu",
                              generator=gen(dev), quiet=True, device=dev)["metrics"]
-            par[dev] = {k: r[k] for k in ("keypoints", "n_matches", "consensus")}
-    finally:
-        tran.sample_subsets = draw
-    g_res, c_res = par["cuda"], par["cpu"]
-    gate(all(abs(a - b) <= 0.02 * b for a, b in zip(g_res["keypoints"], c_res["keypoints"]))
-         and abs(g_res["n_matches"] - c_res["n_matches"]) <= max(2, 0.03 * c_res["n_matches"])
-         and abs(g_res["consensus"] - c_res["consensus"]) <= 0.05, "cpu_parity")
+        par[dev] = {k: r[k] for k in ("keypoints", "n_matches", "consensus")}
+    gate(parity_holds(par["cuda"], par["cpu"]), "cpu_parity")
     out["cpu_parity"] = {"shape": [int(v) for v in sg[0].shape], **par}
 
     launches = {name: mod_.launches for name, mod_ in wrappers.items()}
@@ -2443,6 +2441,311 @@ def phase_png_depths(torch, np, pair, small, wrappers, smi):
     if bad:
         raise AssertionError(f"the png_depths phase failed on {bad} (files in {pd_dir})")
     shutil.rmtree(pd_dir)
+    return launches
+
+
+# --- inputs that went to Pillow: smoothed progressive JPEG, Netpbm ---
+
+# the progressive fixtures of tests/data/jpeg that the phase cuts after
+# every scan but their last, and the sha256 of Pillow's decodes of each
+# file's cuts (Pillow 12.1.0 on libjpeg-turbo 3.1.3, which smooths the
+# blocks the cuts leave unrefined), concatenated in scan order;
+# tests/test_torch_jpeg_smoothing.py holds them to Pillow
+JPEG_SMOOTH_SHA256 = {
+    "castle-progressive.jpg": "e4eef1443423a53b2913ec8bacf5662d7f2f7735d4162b3f7f75fdcd6b28cb2f",
+    "digest-gray-progressive-rst3.jpg": "57098a215e1624666f1b19282965605d06c1f28c37cfa1962c9748a57dcf06dc",
+    "digest-rgb-440-progressive.jpg": "c342c445e5729c9727066039f48b1015d156499205a08d0e7b2610092a8c942d",
+    "digest-rgb-progressive-444.jpg": "6d3f7d1e517e2503ec40dd062ff08bf2be3da8f9c3d62b0a64e3c55af8d8df37",
+    "digest-rgb-progressive-rst3.jpg": "27c6a8520daf648d15396b5d9dee8719e0e3b6e86858a6a38a93b7ac5c5fa600",
+}
+# the scan the progressive pair is cut after: Pillow's fifth scan (Y's
+# AC 6-63 at Al 2), which leaves Y's first AC band and both chroma AC
+# bands unrefined, so the cut pair is smoothed
+PAIR_CUT_SCAN = 5
+# the Netpbm files of pnm_digest_files(): (magic, maxval) of each, every
+# magic plain and raw, and the sha256 (png_digest) of Pillow's array of
+# each (Pillow 12.1.0), which tests/test_torch_pnm.py holds to Pillow
+PNM_CASES = {f"p{m}-{v}": (m, v) for m, vs in ((1, (1,)), (4, (1,)),
+                                              (2, (1, 15, 100, 255, 256, 1000, 65535)),
+                                              (5, (1, 15, 100, 255, 256, 1000, 65535)),
+                                              (3, (100, 255, 1000, 65535)),
+                                              (6, (100, 255, 1000, 65535))) for v in vs}
+PNM_SHA256 = {
+    "p1-1": "3b6cab54fade8217020505095321c3488499787c52e70e998e4038ad3a62f515",
+    "p4-1": "38c8da604a6db2f3743a76c947db4f6ec10d01adb009355270f1627a835feb02",
+    "p2-1": "021dba1b97fbd9f1967eb89fef41ff649b1e58bee97b5ff024a1f7a433be0bbf",
+    "p2-15": "f2bebc45e6f20af63f047dbddacae998ddbd8b9fe90bef2f73d20b6673cc89c4",
+    "p2-100": "588428b017a20f01885e14eab36436a6b6a9188d6ebb3bd7a381db065cb6b18b",
+    "p2-255": "73cb6485facb5f14fca5668d4d5120ece6b88ba2eeb4d69df9190b81996f1b6f",
+    "p2-256": "65a4850b3afd10c476ac9433d897e03ff471265d392eb8f1bf8366b8b6cc7afb",
+    "p2-1000": "92845e50bf968a31bdb12d6dd09fefff453eecd1af2aa9da1a91145f4a374f5c",
+    "p2-65535": "bf01a54fa9d187a64d11d22c9fbf10400ca0e56e8c46a210e4504af461f9a057",
+    "p5-1": "f340eaa2310222366b70cc61484df6b952d57185901f5173c75cced5329dde5c",
+    "p5-15": "bf4c137ff938619360f5f4ce875b2e14bfd3e4924c0c69c538ccf14e9b968f7d",
+    "p5-100": "a49d346059685a83579591037c3a390d1171270279830fe48d2d1c783ec884ec",
+    "p5-255": "6f059887d8df664c40bbb3cdd788021f68ad61bd721206f377f865f10899e086",
+    "p5-256": "cbea9c8883dc8ad0e990a5d90e4bc12689484b8d8dd1b9e17b7016ec8edc4ecb",
+    "p5-1000": "5e36c2eab908fead8d770ecc6ba84c2fcfdcd774a73f7b7fb657eb73e726ec35",
+    "p5-65535": "4ed5004b95adf212b60299771149a5eadd90721421430dffbf10abc6fc6dd083",
+    "p3-100": "f31f0f6831863507c516f4a4ac1f33f8c59dc814442f3fce9b6c32234829d2c2",
+    "p3-255": "5b294d1cc8859b10ac1fbbec7b75ff1c0d7c5601483ff4bc1ac0e8316e7692c4",
+    "p3-1000": "bec7bf662277c028abc8e6fcb49eaf7faedfadbb52aaf278acb5bb853aca03cc",
+    "p3-65535": "bf28ed7da3b8848949b6fe7b9e927ce11898638aec7d379b318cfd7eae502951",
+    "p6-100": "a51da86763cbb16dfffd5ca880b3f8e60e712ada678ecf50e4dc33e43044df90",
+    "p6-255": "65ef5b244b5b914c701904d836e31c8635872623b5b9ada67328d8c983bfd876",
+    "p6-1000": "2f6162afd1e8d1bb70fc4cd6282b6b64a4504101a9e4128dc4ffba2f1f9e942f",
+    "p6-65535": "be1cb3480f46b09ff6a014be1538f4d3fc5b6ce28ab788babe721b70fa026629",
+}
+# the maxval of one of the 10 views, the others' being 65535
+PNM_VIEW_12BIT = 3
+
+
+def cut_after_scan(data, k):
+    """A copy of ``tests/test_torch_jpeg.py``'s: ``data`` cut after its
+    ``k``-th scan's entropy-coded data, with EOI appended."""
+    pos = 0
+    for _ in range(k):
+        pos = data.index(b"\xff\xda", pos) + 2
+    pos += int.from_bytes(data[pos:pos + 2], "big")
+    # the next marker: FF followed by neither a stuffed 00 nor an RSTn
+    while not (data[pos] == 0xFF and data[pos + 1] not in (0x00, *range(0xD0, 0xD8))):
+        pos += 1
+    return data[:pos] + b"\xff\xd9"
+
+
+def jpeg_smooth_digest(np, data, decode):
+    """sha256 of ``decode``'s arrays of ``data`` cut after each scan but
+    its last, concatenated in scan order (``decode`` gives a uint8 array
+    or None; None fails)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in range(1, data.count(b"\xff\xda")):
+        im = decode(cut_after_scan(data, k))
+        if im is None:
+            return None
+        h.update(np.ascontiguousarray(im).tobytes())
+    return h.hexdigest()
+
+
+def pnm_encode(np, samples, magic, maxval):
+    """A Netpbm file's bytes of ``samples``: the values as the file holds
+    them (bits with 1 black for ``P1`` / ``P4``, ``(H, W)`` for ``P2`` /
+    ``P5``, ``(H, W, 3)`` for ``P3`` / ``P6``), a header with comments and
+    mixed whitespace; plain bodies a row a line (``P1`` without spaces),
+    raw bodies big-endian above maxval 255."""
+    h, w = samples.shape[:2]
+    head = b"P%d\n# written by chip_smoke.py\n%d\t%d\r\n" % (magic, w, h)
+    if magic in (1, 4):
+        bits = np.asarray(samples, np.uint8)
+        if magic == 4:
+            return head + np.packbits(bits, axis=1).tobytes()
+        return head + b"\n".join(bytes(r + 48) for r in bits) + b"\n"
+    head += b"# maxval\n%d\n" % maxval
+    if magic in (5, 6):
+        return head + np.ascontiguousarray(samples, ">u2" if maxval > 255 else np.uint8).tobytes()
+    rows = np.asarray(samples).reshape(h, -1)
+    return head + b"".join(b" ".join(b"%d" % v for v in r) + b"\n" for r in rows.tolist())
+
+
+def pnm_samples(np, magic, maxval, h=37, w=53, seed=SEED):
+    """Seeded samples from 0 to ``maxval`` for a file of ``magic`` (uint16,
+    ``(h, w, 3)`` for PPM), drawn from ``mix64``'s stream."""
+    ch = 3 if magic in (3, 6) else 1
+    idx = np.arange(h * w * ch, dtype=np.uint64).reshape(h, w, ch)
+    x = mix64(np, idx + np.uint64((seed * 1000 + magic * 100 + maxval % 97) << 32))
+    x = (x % np.uint64(maxval + 1)).astype(np.uint16)
+    return x if ch == 3 else x[..., 0]
+
+
+def pnm_digest_files(np, seed=SEED):
+    """``{case: file bytes}`` of every case of ``PNM_CASES`` at 37x53."""
+    return {name: pnm_encode(np, pnm_samples(np, magic, maxval, seed=seed), magic, maxval)
+            for name, (magic, maxval) in PNM_CASES.items()}
+
+
+def phase_pillow_free_inputs(torch, np, pair, wrappers, smi):
+    """ex01 and ex02 from the inputs that went to Pillow until the port's
+    codecs read them, as users run them, on the card (files in a
+    temporary directory under ``build/``, removed when every gate holds):
+
+    * (a) the progressive fixtures of ``tests/data/jpeg/`` cut after
+      every scan but their last: their decodes, whose unrefined blocks
+      the codec smooths as libjpeg-turbo does, equal Pillow's pinned
+      digests (``JPEG_SMOOTH_SHA256``);
+    * (b) ex01 cold in a subprocess (no ``--device``, ``--cache``) on the
+      progressive pair cut after scan ``PAIR_CUT_SCAN``: the two-view
+      gates against ``pose.txt``, its matches, counts, cloud and
+      ``rect-*`` files identical to the byte to ``run_two_view_arrays``
+      on the codec's decodes; decode seconds;
+    * (c) ex01 cold on the rendered 2048x3072 pair as 8-bit P6 (this
+      script's ``pnm_encode``), the same gates and identity, decode
+      seconds of P6 and of 16-bit P5 at that size; ex02 cold
+      (``--pairs sequential``) on the 10 views as 16-bit P5, one at
+      maxval 4095: every pair ``success``, ATE under 2% of the span,
+      ``poses.txt`` and the cloud identical to the byte to
+      ``run_sfm_arrays`` on the decodes;
+    * (d) 24 small Netpbm files (``pnm_digest_files``: every magic, plain
+      and raw, maxvals 1 to 65535, comments in the header) decode to
+      Pillow's pinned digests (``PNM_SHA256``).
+
+    Returns the launches of the phase's in-process runs by wrapper."""
+    import shutil
+    import tempfile
+
+    from spectavi_tpu_torch.pipeline import io as pio
+    from spectavi_tpu_torch.pipeline.jpeg import read_jpeg
+    from spectavi_tpu_torch.pipeline.sfm import run_sfm_arrays
+    from spectavi_tpu_torch.pipeline.two_view import run_two_view_arrays
+    from spectavi_tpu_torch.sfm import ate_rmse, camera_centers
+
+    grays, colors, K, (R_gt, t_gt) = pair
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    pf_dir = tempfile.mkdtemp(prefix="pillow-free-", dir=os.path.join(ROOT, "build"))
+    d = lambda *p: os.path.join(pf_dir, *p)
+    fx = lambda *p: os.path.join(ROOT, JPEG_FIXTURES, *p)
+    for mod_ in wrappers.values():
+        mod_.launches = 0
+    out, bad = {"card": smi}, []
+
+    def gate(ok, name):
+        if not ok:
+            bad.append(name)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def gen():
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED)
+        return g
+
+    def write(path, data):
+        with open(path, "wb") as f:
+            f.write(data)
+
+    def ex01_cold_vs_arrays(paths, kfile, tag, R, t):
+        """ex01 cold on ``paths`` against the array path on their
+        decodes: the gates into ``bad``, the report's entries."""
+        names = ("sparse_inliers.ply", *("rect-" + os.path.basename(p) for p in paths),
+                 "metrics.json", "cache.npz")
+        cli_s, _ = run_cli("spectavi_tpu_torch.pipeline.ex01",
+                           [*paths, kfile, "--outdir", d(f"{tag}-cli"), "--seed", str(SEED),
+                            "--cache"])
+        gate(all(os.path.getsize(d(f"{tag}-cli", n)) > 0 for n in names), f"{tag}_cli_outputs")
+        pio._decode.cache_clear()
+        dgrays = [pio.imread(p, dtype="float32", force_grayscale=True) for p in paths]
+        dcolors = [pio.imread(p, dtype="uint8") for p in paths]
+        arrays, arrays_s = timed(lambda: run_two_view_arrays(
+            dgrays, dcolors, np.loadtxt(kfile), image_names=paths, outdir=d(f"{tag}-arrays"),
+            cache=True, generator=gen(), quiet=True))
+        same, rect_ok, rect_shape = cli_vs_arrays(np, d(f"{tag}-cli"), d(f"{tag}-arrays"), arrays,
+                                                  names)
+        gate(all(same.values()), f"{tag}_cli_vs_arrays")
+        gate(rect_ok, f"{tag}_rect_read_back")
+        m = arrays["metrics"]
+        gate(m["consensus"] >= 0.8, f"{tag}_consensus")
+        try:
+            rot, t_err = check_two_view(np, arrays, R, t)
+        except AssertionError as e:
+            rot = t_err = None
+            gate(False, f"{tag}_two_view: {e}")
+        return {"cold_cli_s": cli_s, "arrays_s": arrays_s, "identical": same,
+                "dtype": str(dcolors[0].dtype), "keypoints": m["keypoints"],
+                "n_matches": m["n_matches"], "n_inliers": m["n_inliers"],
+                "consensus": m["consensus"], "rotation_err_deg": rot, "translation_err_deg": t_err,
+                "rect_shape": rect_shape}
+
+    # (a) every progressive fixture cut after each scan but its last
+    digests, smooth_s = {}, {}
+    for name, want in JPEG_SMOOTH_SHA256.items():
+        data = file_bytes(fx(name))
+        digests[name], smooth_s[name] = timed(lambda: jpeg_smooth_digest(np, data, read_jpeg))
+        gate(digests[name] == want, f"{name}_smooth_digest")
+    out["smoothing"] = {"cuts": {n: file_bytes(fx(n)).count(b"\xff\xda") - 1
+                                 for n in JPEG_SMOOTH_SHA256},
+                        "decode_all_cuts_s": smooth_s, "digests": digests}
+
+    # (b) ex01 cold from the progressive pair cut after scan PAIR_CUT_SCAN
+    cpaths = [d(f"cut{i}.jpg") for i in (0, 1)]
+    dec_s = []
+    for i, p in enumerate(cpaths):
+        cut = cut_after_scan(file_bytes(fx(f"pair{i}.jpg")), PAIR_CUT_SCAN)
+        write(p, cut)
+        im, secs = timed(lambda: read_jpeg(cut))
+        dec_s.append(secs)
+        gate(im is not None and im.shape == (H, W, 3), f"cut{i}_decode")
+    pose = np.loadtxt(fx("pose.txt"))
+    out["ex01_smoothed_jpeg"] = {"scan": PAIR_CUT_SCAN, "bytes": os.path.getsize(cpaths[0]),
+                                 "decode_s": dec_s, **ex01_cold_vs_arrays(
+                                     cpaths, fx("K.txt"), "smoothed", pose[:, :3], pose[:, 3])}
+
+    # (c) ex01 cold from the pair as 8-bit P6, ex02 cold from 16-bit P5 views
+    ppaths = [d(f"pair{i}.ppm") for i in (0, 1)]
+    kfile = d("K.txt")
+    np.savetxt(kfile, K)
+    enc, dec = {}, {}
+    for p, c in zip(ppaths, colors):
+        data, enc["p6_8bit"] = timed(lambda: pnm_encode(np, as_rgb(np, c), 6, 255))
+        write(p, data)
+    im, dec["p6_8bit"] = timed(lambda: pio._read_pnm(file_bytes(ppaths[0])))
+    exact = {"p6_8bit": same_bytes(np, im, as_rgb(np, colors[0]))}
+    g16 = to_depth(np, grays[0], 16, SEED)
+    data = pnm_encode(np, g16, 5, 65535)
+    im, dec["p5_16bit"] = timed(lambda: pio._read_pnm(data))
+    exact["p5_16bit"] = same_bytes(np, im, g16.astype(np.int32))
+    gate(all(exact.values()), f"pnm_decode_exact: {exact}")
+    out["pnm_codec"] = {"shape": [H, W], "decode_s": dec, "encode_s": enc, "exact": exact,
+                        "bytes": {"p6_8bit": os.path.getsize(ppaths[0]), "p5_16bit": len(data)}}
+    out["ex01_p6"] = ex01_cold_vs_arrays(ppaths, kfile, "p6", R_gt, t_gt)
+
+    vgrays, _, vK, poses = render_views(SFM_VIEWS, SFM_H, SFM_W, "cuda", SFM_TEX)
+    gt_C = np.array([C for _, _, C in poses])
+    vpaths = [d(f"v{i:02d}.pgm") for i in range(SFM_VIEWS)]
+    for i, (p, g) in enumerate(zip(vpaths, vgrays)):
+        depth = 12 if i == PNM_VIEW_12BIT else 16
+        write(p, pnm_encode(np, to_depth(np, g, depth, SEED + 300 + i), 5, (1 << depth) - 1))
+    np.savetxt(d("Kv.txt"), vK)
+    secs, _ = run_cli("spectavi_tpu_torch.pipeline.ex02",
+                      [*vpaths, d("Kv.txt"), "--pairs", "sequential", "--outdir", d("ex02_cli"),
+                       "--seed", str(SEED)])
+    with open(d("ex02_cli", "metrics.json")) as f:
+        sm = json.load(f)
+    cams = np.loadtxt(d("ex02_cli", "poses.txt"))
+    share = ate_rmse(camera_centers(cams), gt_C) / np.ptp(gt_C, axis=0).max()
+    gate(len(sm["pairs"]) == SFM_VIEWS - 1 and all(p.get("success") for p in sm["pairs"])
+         and share < 0.02, "ex02")
+    pio._decode.cache_clear()
+    sgrays = [pio.imread(p, dtype="float32", force_grayscale=True) for p in vpaths]
+    dtypes = sorted({str(pio.imread(p, dtype="uint8").dtype) for p in vpaths})
+    res, arrays_s = timed(lambda: run_sfm_arrays(sgrays, np.loadtxt(d("Kv.txt")),
+                                                 outdir=d("ex02_arrays"), generator=gen(),
+                                                 quiet=True))
+    ex02_same = {n: file_bytes(d("ex02_cli", n)) == file_bytes(d("ex02_arrays", n))
+                 for n in ("poses.txt", "sparse_cloud.ply")}
+    gate(all(ex02_same.values()), "ex02_cli_vs_arrays")
+    out["ex02_p5_16bit"] = {"cold_cli_s": secs, "arrays_s": arrays_s, "pairs": len(sm["pairs"]),
+                            "failed_pairs": [p["pair"] for p in sm["pairs"] if not p.get("success")],
+                            "dtypes": dtypes, "init_used": sm["init_used"],
+                            "tracks": sm["n_tracks"], "ate_share": share, "identical": ex02_same,
+                            "tracks_arrays": res["metrics"]["n_tracks"]}
+
+    # (d) the small Netpbm files against Pillow's pinned digests
+    failed = [name for name, data in pnm_digest_files(np).items()
+              if png_digest(pio._read_pnm(data)) != PNM_SHA256[name]]
+    gate(not failed, f"pnm_digests: {failed}")
+    out["pnm_digests"] = {"files": len(PNM_CASES), "failed": failed}
+
+    launches = {name: mod_.launches for name, mod_ in wrappers.items()}
+    gate(all(v > 0 for v in launches.values()), "launches")
+    emit("pillow_free_inputs", launches=launches, failed=bad, **out)
+    if bad:
+        raise AssertionError(f"the pillow_free_inputs phase failed on {bad} (files in {pf_dir})")
+    shutil.rmtree(pf_dir)
     return launches
 
 
@@ -2732,6 +3035,34 @@ def phase_distributed(torch, np, res, K, cap, smi):
             for name, rep in reports.items()}
 
 
+@contextlib.contextmanager
+def host_ransac_tables(torch):
+    """RANSAC's sample tables drawn on the host from ``SEED`` whatever
+    the device, for a run on the card and one on the CPU to take the same
+    tables: at 240x320 the consensus of the rendered pair spans 0.50-0.64
+    over generator seeds, so two random streams cannot be held within
+    ``parity_holds``' 0.05; what differs is then the device alone."""
+    from spectavi_tpu_torch.mvg import ransac as tran
+
+    draw = tran.sample_subsets
+    host = torch.Generator()
+    host.manual_seed(SEED)
+    tran.sample_subsets = lambda n, trials, mask, generator=None: draw(
+        n, trials, mask.cpu(), host).to(mask.device)
+    try:
+        yield
+    finally:
+        tran.sample_subsets = draw
+
+
+def parity_holds(card, cpu):
+    """The card's and the CPU's run of one pair agree: keypoints within
+    2%, matches within 3% (or 2), consensus within 0.05."""
+    return (all(abs(a - b) <= 0.02 * b for a, b in zip(card["keypoints"], cpu["keypoints"]))
+            and abs(card["n_matches"] - cpu["n_matches"]) <= max(2, 0.03 * cpu["n_matches"])
+            and abs(card["consensus"] - cpu["consensus"]) <= 0.05)
+
+
 def rotation_angle_deg(Ra, Rb):
     import numpy as np
 
@@ -2861,15 +3192,13 @@ def main(argv):
     torch.cuda.empty_cache()
 
     sg, sc, sk, _ = small
-    g_res = run("cuda", sg, sc, sk, "l2-mxu")["metrics"]
-    c_res = run("cpu", sg, sc, sk, "l2-mxu")["metrics"]
-    emit("cpu_parity", shape=[SMALL_H, SMALL_W],
-         cuda={k: g_res[k] for k in ("keypoints", "n_matches", "consensus")},
-         cpu={k: c_res[k] for k in ("keypoints", "n_matches", "consensus")})
-    kp_ok = all(abs(a - b) <= 0.02 * b for a, b in zip(g_res["keypoints"], c_res["keypoints"]))
-    nm_ok = abs(g_res["n_matches"] - c_res["n_matches"]) <= max(2, 0.03 * c_res["n_matches"])
-    cons_ok = abs(g_res["consensus"] - c_res["consensus"]) <= 0.05
-    if not (kp_ok and nm_ok and cons_ok):
+    par = {}
+    for dev in ("cuda", "cpu"):
+        with host_ransac_tables(torch):
+            r = run(dev, sg, sc, sk, "l2-mxu")["metrics"]
+        par[dev] = {k: r[k] for k in ("keypoints", "n_matches", "consensus")}
+    emit("cpu_parity", shape=[SMALL_H, SMALL_W], tables="host", **par)
+    if not parity_holds(par["cuda"], par["cpu"]):
         raise AssertionError("the card and the CPU disagree on the small pair")
 
     # the multi-view phases, each with its own clock
@@ -2906,6 +3235,11 @@ def main(argv):
     launches_png = phase_png_depths(torch, np, (grays, colors, K, (R_gt, t_gt)), small,
                                     wrappers, smi)
     phase_s["png_depths"] = time.perf_counter() - t0
+    # ex01 and ex02 from smoothed progressive JPEG and from Netpbm
+    t0 = time.perf_counter()
+    launches_free = phase_pillow_free_inputs(torch, np, (grays, colors, K, (R_gt, t_gt)),
+                                             wrappers, smi)
+    phase_s["pillow_free_inputs"] = time.perf_counter() - t0
     # the mesh layer in worker processes, each counting its own launches
     t0 = time.perf_counter()
     launches_dist = phase_distributed(torch, np, warm_sfm, sfm_K, step_capture, smi)
@@ -2932,6 +3266,7 @@ def main(argv):
             "launches_jpeg": launches_jpeg[name],
             "launches_jpeg_progressive": launches_progressive[name],
             "launches_png_depths": launches_png[name],
+            "launches_pillow_free_inputs": launches_free[name],
             # by rank, in each job of the distributed phase
             "launches_dist": {job: counts[name] for job, counts in launches_dist.items()},
         })

@@ -9,13 +9,14 @@
 // fixed-point YCbCr->RGB tables.  All of that is integer arithmetic, so
 // it is reproduced here step for step.  A progressive file is read scan
 // by scan into whole-image coefficient buffers (jdphuff.c's four scan
-// kinds) and output after its last scan.  Reported as "not mine", for
-// the caller to hand to another decoder: arithmetic coding, lossless,
-// hierarchical and 12-bit JPEG, 2 or 4 components (CMYK, YCCK),
-// non-integral sampling factors, and progressive files whose scans leave
-// a coefficient unrefined (libjpeg-turbo would apply its block smoothing
-// to them).  A malformed file is reported as an error; every read of the
-// input is bounds-checked.
+// kinds) and output after its last scan; where its scans leave one of
+// the first nine AC coefficients unrefined, the blocks are smoothed
+// first, as libjpeg-turbo's jdcoefct.c smooths them (held to 3.1.3).
+// Reported as "not mine", for the caller to hand to another decoder:
+// arithmetic coding, lossless, hierarchical and 12-bit JPEG, 2 or 4
+// components (CMYK, YCCK) and non-integral sampling factors.  A
+// malformed file is reported as an error; every read of the input is
+// bounds-checked.
 //
 // The encoder writes what libjpeg-turbo writes with its defaults (as
 // Pillow's ``Image.save`` calls it): the JFIF APP0 header, baseline
@@ -49,6 +50,33 @@ const int kNatural[64] = {
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+// block smoothing (jdcoefct.c): the coefficients it estimates, zigzag
+// 0-9, and its 5x5 kernels over the DC values around a block (row-major,
+// the block at the centre) for zigzag 1-9, without and with "change DC"
+// (no AC coded yet); without it only zigzag 1-5 are estimated
+constexpr int kSmoothed = 10;
+const int8_t kSmoothKernel[2][kSmoothed][25] = {
+    {{},
+     {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -7, 50, 0, -50, 7, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+     {0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0, 0, 0, -50, 0, 0, 0, 0, 7, 0, 0},
+     {0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0, 0, 0, 13, 0, 0, 0, 0, -1, 0, 0},
+     {0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0, 1, -10, 0, 10, -1, 0, 1, 0, -1, 0},
+     {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 13, -24, 13, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+     {}, {}, {}, {}},
+    {{},
+     {-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3, -3, 13, 0, -13, 3, -1, -1, 0, 1, 1},
+     {-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0, 1, -13, -38, -13, 1, 1, 3, 3, 3, 1},
+     {0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0, 0, 2, 7, 2, 0, 0, 0, 1, 0, 0},
+     {-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0, 0, -9, 0, 9, 0, 1, 0, 0, 0, -1},
+     {0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1, 0, 2, -5, 2, 0, 0, 0, 0, 0, 0},
+     {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0},
+     {0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0, 0, -1, 3, -1, 0, 0, 0, 0, 0, 0},
+     {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0},
+     {0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0, 0, -1, -2, -1, 0, 0, 0, 0, 0, 0}}};
+// the "change DC" estimate of the DC itself (the weights sum to 256)
+const int16_t kSmoothDc[25] = {-2, -6,  -8, -6, -2, -6, 6,  42,  6,  -6, -8, 42, 152,
+                               42, -8, -6, 6,  42, 6,  -6, -2, -6, -8, -6, -2};
 
 // Annex K.3 Huffman tables: code counts by length 1-16, then symbols
 const uint8_t kDcLumBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
@@ -904,19 +932,103 @@ struct Decoder {
     return !wide;
   }
 
-  void idct_component(Component& c) {
+  // jdcoefct.c's smoothing_ok: a progressive file whose every component
+  // has its table latched, nonzero at the ten positions smoothing reads,
+  // and a DC scan; smoothing is useful where any of zigzag 1-9 is not
+  // known to its last bit (coefficients past 9 play no part)
+  bool smoothing_ok() const {
+    if (!progressive) return false;
+    bool useful = false;
+    for (int i = 0; i < nc; i++) {
+      const Component& c = comp[i];
+      for (int k = 0; k < kSmoothed; k++) {
+        if (uint16_t(c.quant[kNatural[k]]) == 0) return false;
+      }
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < kSmoothed; k++) useful |= c.coef_bits[k] != 0;
+    }
+    return useful;
+  }
+
+  // the rounded quotient of num by 256 q with the sign taken apart,
+  // capped below 1 << al where al > 0 (the bits still to come)
+  static int predict(int64_t num, int64_t q, int al) {
+    int64_t p = ((q << 7) + (num >= 0 ? num : -num)) / (q << 8);
+    if (al > 0 && p >= (int64_t(1) << al)) p = (int64_t(1) << al) - 1;
+    return int(num >= 0 ? p : -p);
+  }
+
+  // jdcoefct.c's decompress_smooth_data on one block: blk's zigzag 1-9
+  // that are still zero and not known to their last bit become
+  // estimates from the 5x5 neighbourhood dc[25] of DC values (row-major,
+  // the block at 12); with no AC coded at all ("change DC"), the DC too
+  static void smooth_block(int16_t* blk, const int* dc, const int* quant, const int* bits) {
+    bool change_dc = true;
+    for (int k = 1; k < kSmoothed; k++) change_dc &= bits[k] == -1;
+    // the file's unsigned quantval, which quant holds as int16_t
+    const int64_t q00 = uint16_t(quant[0]);
+    int ks = change_dc ? kSmoothed : 6;
+    for (int k = 1; k < ks; k++) {
+      int pos = kNatural[k];
+      if (bits[k] == 0 || blk[pos] != 0) continue;
+      const int8_t* w = kSmoothKernel[change_dc][k];
+      int64_t sum = 0;
+      for (int j = 0; j < 25; j++) sum += int64_t(w[j]) * dc[j];
+      blk[pos] = int16_t(predict(q00 * sum, uint16_t(quant[pos]), bits[k]));
+    }
+    if (change_dc) {
+      int64_t sum = 0;
+      for (int j = 0; j < 25; j++) sum += int64_t(kSmoothDc[j]) * dc[j];
+      blk[0] = int16_t(predict(q00 * sum, q00, 0));
+    }
+  }
+
+  void idct_component(Component& c, bool smooth) {
     size_t stride = size_t(c.bw) * 8;
     c.plane.assign(stride * size_t(c.bh) * 8, 0);
     int rbw = (c.w + 7) / 8, rbh = (c.ht + 7) / 8;
+    int16_t ws[64];
+    int dc[25];
     for (int by = 0; by < rbh; by++) {
+      int rows[5];
+      if (smooth) smooth_rows(c, by, rbh, rows);
       for (int bx = 0; bx < rbw; bx++) {
-        if (!idct(&c.coef.p[(size_t(by) * c.bw + bx) * 64], c.quant,
-                  &c.plane[size_t(by) * 8 * stride + size_t(bx) * 8], stride)) {
+        const int16_t* blk = &c.coef.p[(size_t(by) * c.bw + bx) * 64];
+        if (smooth) {
+          // the columns two left to two right, replicated at both edges
+          for (int j = 0; j < 5; j++) {
+            int x = bx + j - 2;
+            x = x < 0 ? 0 : x >= rbw ? rbw - 1 : x;
+            for (int i = 0; i < 5; i++) dc[5 * i + j] = c.coef.p[(size_t(rows[i]) * c.bw + x) * 64];
+          }
+          std::memcpy(ws, blk, sizeof ws);
+          smooth_block(ws, dc, c.quant, c.coef_bits);
+          blk = ws;
+        }
+        if (!idct(blk, c.quant, &c.plane[size_t(by) * 8 * stride + size_t(bx) * 8], stride)) {
           bad("JPEG coefficients beyond the range of 8-bit samples");
         }
       }
     }
     c.coef.release();
+  }
+
+  // the block rows decompress_smooth_data reads for block row by (two
+  // above to two below).  It counts rows within the iMCU row's block
+  // rows (the component's v, or fewer in the last iMCU row), so where
+  // the last iMCU row holds fewer than v block rows its edge tests fall
+  // short of the real ones: they may read the dummy rows of the buffer
+  // below the image, or repeat a row above.
+  void smooth_rows(const Component& c, int by, int rbh, int* rows) const {
+    int imcu = by / c.v, block_row = by % c.v;
+    int block_rows = c.v;
+    if (imcu == mcuy - 1 && rbh % c.v) block_rows = rbh % c.v;
+    int row = imcu * block_rows + block_row, nrows = block_rows * mcuy;
+    rows[2] = by;
+    rows[1] = row > 0 ? by - 1 : by;
+    rows[0] = row > 1 ? by - 2 : rows[1];
+    rows[3] = row < nrows - 1 ? by + 1 : by;
+    rows[4] = row < nrows - 2 ? by + 2 : rows[3];
   }
 
   // jdsample.c's h2v1_fancy_upsample of one row of cw samples (cw > 2)
@@ -994,19 +1106,11 @@ struct Decoder {
 
   void output(uint8_t* out) {
     if (int64_t(H) * W * nc != out_len) bad("output buffer has the wrong size");
-    // jdcoefct.c's smoothing_ok: where a coefficient is not refined to
-    // its last bit (or never coded), libjpeg-turbo smooths blocks
-    if (progressive) {
-      for (int i = 0; i < nc; i++) {
-        for (int k = 0; k < 64; k++) {
-          if (comp[i].coef_bits[k] != 0) not_mine("progressive JPEG leaves coefficients unrefined");
-        }
-      }
-    }
     for (int i = 0; i < nc; i++) {
       if (!comp[i].scanned) bad("JPEG component never coded in a scan");
-      idct_component(comp[i]);
     }
+    bool smooth = smoothing_ok();
+    for (int i = 0; i < nc; i++) idct_component(comp[i], smooth);
     if (nc == 1) {
       const Component& c = comp[0];
       size_t stride = size_t(c.bw) * 8;

@@ -3,8 +3,8 @@
 The port's own copy of ``spectavi_tpu/pipeline/io.py``: imread with max
 normalization, BT.601 grayscale, ``Timer``, metrics JSON, ASCII PLY.
 
-PNG and JPEG go through codecs of the port's own, so the pipelines run
-from PNG and JPEG files on machines without Pillow:
+PNG, JPEG and Netpbm go through codecs of the port's own, so the
+pipelines run from such files on machines without Pillow:
 
 * PNG (numpy and the standard library's ``zlib``): :func:`imread` reads
   every PNG the standard allows (gray at 1, 2, 4, 8 and 16 bits, RGB,
@@ -17,15 +17,21 @@ from PNG and JPEG files on machines without Pillow:
   gray + alpha, RGB and RGBA PNG.
 * JPEG (host C++, :mod:`spectavi_tpu_torch.pipeline.jpeg`, compiled at
   first use): :func:`imread` reads baseline and progressive Huffman
-  JPEG at 8 bits, gray or colour at any integral sampling factors, to
-  exactly Pillow's array, and :func:`imsave` writes the ``.jpg`` /
-  ``.jpeg`` file that Pillow writes (baseline, quality 75, 4:2:0 for
-  RGB).
+  JPEG at 8 bits, gray or colour at any integral sampling factors (a
+  progressive file's unrefined coefficients smoothed as libjpeg-turbo
+  smooths them), to exactly Pillow's array, and :func:`imsave` writes
+  the ``.jpg`` / ``.jpeg`` file that Pillow writes (baseline, quality
+  75, 4:2:0 for RGB).
+* Netpbm (numpy): :func:`imread` reads PBM, PGM and PPM (``P1``-``P6``,
+  plain and raw, maxval 1-65535) to Pillow's array: PBM as ``bool``,
+  PGM as ``uint8`` up to maxval 255 and as ``int32`` above it, PPM as
+  ``uint8`` RGB, scaled as Pillow scales them.  :func:`imsave` writes
+  8-bit PGM and PPM as Pillow writes them.
 
-Other formats, and the JPEG variants the codec does not read, go
-through Pillow: arithmetic-coded, lossless, hierarchical or 12-bit
-JPEG, CMYK and YCCK, non-integral sampling factors, and progressive
-files whose scans leave coefficients unrefined.
+Other formats go through Pillow: TIFF, BMP, WebP and the rest, and the
+JPEG variants the codec does not read (arithmetic-coded, lossless,
+hierarchical or 12-bit JPEG, CMYK and YCCK, non-integral sampling
+factors).
 """
 
 from __future__ import annotations
@@ -279,27 +285,142 @@ def _read_png(data):
     return _as_pillow(samples, depth, ctype)
 
 
+# Netpbm: the whitespace of a header and of a plain body, and each
+# magic's Pillow mode before its maxval is read
+_PNM_SPACE = b" \t\n\x0b\x0c\r"
+_PNM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB"}
+# the longest number Pillow takes in a header or a plain body
+_PNM_TOKEN = 10
+
+
+def _pnm_header(data, count):
+    """The first ``count`` header tokens after the magic and where the
+    raster starts, as Pillow's ``PpmImageFile._read_token`` reads them: a
+    token ends at one whitespace byte (consumed) or the end of the data,
+    and a ``#`` anywhere drops the rest of its line, its CR or LF too,
+    without ending the token."""
+    pos, tokens = 3, []
+    for _ in range(count):
+        token = bytearray()
+        while len(token) <= _PNM_TOKEN and pos < len(data):
+            c = data[pos]
+            pos += 1
+            if c in _PNM_SPACE:
+                if token:
+                    break
+            elif c == 0x23:
+                while pos < len(data):
+                    pos += 1
+                    if data[pos - 1] in b"\r\n":
+                        break
+            else:
+                token.append(c)
+        if not token or len(token) > _PNM_TOKEN:
+            raise ValueError(f"Netpbm header ends early or has a token of over {_PNM_TOKEN} "
+                             f"bytes: {bytes(token)[:_PNM_TOKEN + 1]!r}")
+        tokens.append(int(token))
+    return tokens, pos
+
+
+def _pnm_uncommented(body):
+    """A plain body without its ``#`` comments, each dropped with its
+    CR or LF, as Pillow's ``PpmPlainDecoder`` drops them."""
+    import re
+
+    return re.sub(rb"#[^\r\n]*[\r\n]?", b"", body)
+
+
+def _pnm_plain(body, count, maxval):
+    """The first ``count`` numbers of a plain body (comments dropped), as
+    Pillow's ``PpmPlainDecoder`` reads them: Python's ``int`` of each
+    whitespace-separated token of at most ten bytes (a sign and
+    underscores taken), each from 0 to ``maxval``; int64."""
+    tokens = body.split()[:count]
+    if len(tokens) < count:
+        raise ValueError(f"Netpbm plain body holds {len(tokens)} samples, {count} expected")
+    if any(len(t) > _PNM_TOKEN for t in tokens):
+        raise ValueError(f"Netpbm plain body has a sample of over {_PNM_TOKEN} bytes")
+    values = np.array([int(t) for t in tokens], np.int64)
+    if values.size and (values.min() < 0 or values.max() > maxval):
+        raise ValueError(f"Netpbm plain body has a sample outside 0-{maxval}")
+    return values
+
+
+def _read_pnm(data):
+    """The pixels of a Netpbm file (``P1``-``P6``: PBM, PGM and PPM, plain
+    and raw) as Pillow's array: PBM as ``bool`` with black (1) ``False``;
+    PGM at maxval 255 as ``uint8``, at other maxvals up to 255 scaled to
+    0-255, above 255 as ``int32`` scaled to 0-65535; PPM as ``uint8`` RGB
+    scaled to 0-255.  Scaling rounds ``v / maxval * top`` half to even, as
+    Pillow's ``round`` does, and caps a raw sample above maxval at the top.
+    ``ValueError`` for a file that is not valid Netpbm."""
+    magic = bytes(data[:2])
+    if magic not in _PNM_MODES or (len(data) > 2 and data[2] not in _PNM_SPACE):
+        raise ValueError(f"not a Netpbm file: magic {bytes(data[:3])!r}")
+    mode = _PNM_MODES[magic]
+    (w, h, *maxval), pos = _pnm_header(data, 2 if mode == "1" else 3)
+    if w <= 0 or h <= 0:
+        raise ValueError(f"Netpbm image is {w}x{h}")
+    body = data[pos:]
+    if mode == "1":
+        if magic == b"P4":
+            row = -(-w // 8)
+            if len(body) < h * row:
+                raise ValueError(f"Netpbm raster holds {len(body)} bytes, {h * row} expected")
+            bits = np.unpackbits(np.frombuffer(body, np.uint8, h * row).reshape(h, row), axis=1)
+            return bits[:, :w] == 0
+        b = np.frombuffer(_pnm_uncommented(body), np.uint8)
+        b = b[~np.isin(b, np.frombuffer(_PNM_SPACE, np.uint8))]
+        if not np.isin(b, (48, 49)).all():
+            raise ValueError("Netpbm plain bitmap has a byte other than 0, 1 and whitespace")
+        if b.size < w * h:
+            raise ValueError(f"Netpbm plain bitmap holds {b.size} samples, {w * h} expected")
+        return (b[:w * h] == 48).reshape(h, w)
+    maxval = maxval[0]
+    if not 0 < maxval < 65536:
+        raise ValueError(f"Netpbm maxval {maxval} is not 1-65535")
+    bands = 3 if mode == "RGB" else 1
+    wide = mode == "L" and maxval > 255  # Pillow's mode I
+    top, dtype = (65535, np.int32) if wide else (255, np.uint8)
+    count = w * h * bands
+    shape = (h, w, 3) if bands == 3 else (h, w)
+    if magic in (b"P2", b"P3"):
+        values = _pnm_plain(_pnm_uncommented(body), count, maxval)
+    else:
+        size = 1 if maxval < 256 else 2
+        if len(body) < count * size:
+            raise ValueError(f"Netpbm raster holds {len(body)} bytes, {count * size} expected")
+        values = np.frombuffer(body, ">u2" if size == 2 else np.uint8, count)
+        if maxval == top:
+            return values.astype(dtype).reshape(shape)
+    scaled = np.rint(values / maxval * top)
+    return np.minimum(scaled, top).astype(dtype).reshape(shape)
+
+
 def _pillow():
     try:
         from PIL import Image
     except ImportError as e:
         raise ImportError(
-            "this image format needs Pillow, which is not installed; PNG and "
-            "baseline and progressive JPEG are read without it (and JPEG and "
-            "8-bit PNG written)") from e
+            "this image format needs Pillow, which is not installed; PNG, Netpbm "
+            "(PBM, PGM, PPM) and 8-bit Huffman JPEG are read without it (and JPEG "
+            "and 8-bit PNG written); TIFF, BMP, WebP and arithmetic-coded, "
+            "lossless, 12-bit or CMYK JPEG are not") from e
     return Image
 
 
 @_functools.lru_cache(maxsize=8)
 def _decode(filename, mtime):
     """Decoded raw pixel array, cached: the pipeline reads each image
-    for SIFT (grayscale), rectification (color) and PLY colors.  PNG
-    never goes to Pillow (a malformed file raises ``ValueError``), nor
-    does JPEG that the codec reads."""
+    for SIFT (grayscale), rectification (color) and PLY colors.  PNG and
+    Netpbm never go to Pillow (a malformed file raises ``ValueError``),
+    nor does JPEG that the codec reads."""
     with open(filename, "rb") as f:
         data = f.read()
     if data[:8] == PNG_SIGNATURE:
         im = _read_png(data)
+    elif data[:2] in _PNM_MODES:
+        im = _read_pnm(data)
     else:
         im = read_jpeg(data) if data[:2] == b"\xff\xd8" else None
         if im is None:
@@ -338,18 +459,33 @@ def _write_png(filename, arr):
                 + _png_chunk(b"IEND", b""))
 
 
+def _write_pnm(filename, arr):
+    """The raw PGM (``uint8`` ``(H, W)``) or PPM (``uint8`` ``(H, W, 3)``)
+    that Pillow's ``Image.fromarray(arr).save`` writes for a ``.pbm``,
+    ``.pgm``, ``.ppm`` or ``.pnm`` name, whichever it is: maxval 255."""
+    head = b"P5" if arr.ndim == 2 else b"P6"
+    with open(filename, "wb") as f:
+        f.write(head + b"\n%d %d\n255\n" % (arr.shape[1], arr.shape[0])
+                + np.ascontiguousarray(arr).tobytes())
+
+
 def imsave(filename, arr):
-    """Write an 8-bit image: ``.png`` through the PNG codec (gray, gray +
+    """Write an image: ``.png`` through the PNG codec (8-bit gray, gray +
     alpha, RGB or RGBA), ``.jpg`` / ``.jpeg`` through the JPEG codec
-    (gray or RGB, as Pillow writes it), any other format through
-    Pillow."""
+    (gray or RGB, as Pillow writes it), ``.pbm`` / ``.pgm`` / ``.ppm`` /
+    ``.pnm`` of 8-bit gray or RGB as Pillow writes Netpbm, any other
+    format or array through Pillow."""
     name = filename.lower()
+    arr = np.asarray(arr)
     if name.endswith(".png"):
         _write_png(filename, arr)
     elif name.endswith((".jpg", ".jpeg")):
         write_jpeg(filename, arr)
+    elif (name.endswith((".pbm", ".pgm", ".ppm", ".pnm")) and arr.dtype == np.uint8
+          and (arr.ndim == 2 or arr.ndim == 3 and arr.shape[2] == 3)):
+        _write_pnm(filename, arr)
     else:
-        _pillow().fromarray(np.asarray(arr)).save(filename)
+        _pillow().fromarray(arr).save(filename)
 
 
 def imread(filename, dtype="float64", force_grayscale=False):

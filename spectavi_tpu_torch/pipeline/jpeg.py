@@ -8,13 +8,12 @@ The codec is host C++, compiled with the host compiler at first use
   sampling factors (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, ...), to exactly
   the array ``np.asarray(PIL.Image.open(f))`` gives with Pillow's
   libjpeg-turbo (integer inverse DCT, its upsampling methods, fixed-point
-  colour conversion).  It returns None for the JPEG variants it leaves
-  to Pillow (arithmetic coding, lossless, hierarchical, 12-bit, 2 or 4
-  components such as CMYK and YCCK, non-integral sampling factors, and
-  progressive files whose scans leave coefficients unrefined, which
-  libjpeg-turbo smooths) and raises ``ValueError`` for a malformed
-  file.  A progressive file is claimed from its header, so it may still
-  come back as None once its scans are read.
+  colour conversion, and its block smoothing of a progressive file
+  whose scans leave any of the first nine AC coefficients unrefined).
+  It returns None for the JPEG variants it leaves to Pillow (arithmetic
+  coding, lossless, hierarchical, 12-bit, 2 or 4 components such as
+  CMYK and YCCK, non-integral sampling factors), each known before any
+  scan is decoded, and raises ``ValueError`` for a malformed file.
 * :func:`write_jpeg` writes the file that Pillow's ``Image.fromarray(arr)
   .save(path)`` writes for a ``.jpg`` name: baseline, quality 75, 4:2:0
   for RGB, one component for gray.

@@ -12,13 +12,12 @@ and the pipelines from JPEG files against the JAX package.
   search over sizes, content and settings.
 * Encode: the file is byte-identical to Pillow's ``Image.save`` (gray
   and RGB, odd and even sizes, quality 75 through ``imsave`` and 95).
-* Variants the codec leaves to Pillow go to it: progressive files cut
-  after their first scans (coefficients left unrefined, which
-  libjpeg-turbo smooths) and CMYK; with Pillow blocked
+* Variants the codec leaves to Pillow go to it: CMYK, baseline and
+  progressive (4 components); with Pillow blocked
   (``sys.modules["PIL"] = None``, in a subprocess) they raise an
   ``ImportError`` that names Pillow, while baseline files are read and
-  written (complete progressive files are
-  ``test_torch_jpeg_progressive.py``'s).  Malformed files raise
+  written (progressive files are ``test_torch_jpeg_progressive.py``'s
+  and ``test_torch_jpeg_smoothing.py``'s).  Malformed files raise
   ``ValueError`` in a subprocess that exits cleanly.  A failed build of
   the codec raises, and the file is not handed to Pillow.
 * From the 3 rendered 120x160 views saved as RGB JPEG by Pillow: the
@@ -75,6 +74,14 @@ def _pixels(rng, h, w, channels, noise=9):
 def _pillow_jpeg(arr, **kw):
     f = io.BytesIO()
     Image.fromarray(arr).save(f, format="JPEG", **kw)
+    return f.getvalue()
+
+
+def _pillow_file(arr, name):
+    """The file Pillow writes for ``arr`` at its defaults under ``name``'s
+    extension."""
+    f = io.BytesIO()
+    Image.fromarray(arr).save(f, format=Image.registered_extensions()[os.path.splitext(name)[1]])
     return f.getvalue()
 
 
@@ -254,14 +261,20 @@ def cut_after_scan(data, k):
     return data[:pos] + b"\xff\xd9"
 
 
+def cmyk_jpeg(arr, **kw):
+    """Pillow's JPEG of ``arr`` converted to CMYK: 4 components, which
+    the codec leaves to Pillow."""
+    f = io.BytesIO()
+    Image.fromarray(arr).convert("CMYK").save(f, format="JPEG", **kw)
+    return f.getvalue()
+
+
 def _variant(name):
+    """CMYK files, baseline and progressive (of a gray and of an RGB
+    image): progressive files of 1 or 3 components are the codec's,
+    even where their scans leave coefficients unrefined."""
     arr = _pixels(np.random.default_rng(13), 33, 47, 1 if name == "progressive-gray" else 3)
-    if name == "cmyk":
-        f = io.BytesIO()
-        Image.fromarray(arr).convert("CMYK").save(f, format="JPEG")
-        return f.getvalue()
-    # a progressive file whose coefficients stay unrefined
-    return cut_after_scan(_pillow_jpeg(arr, progressive=True), 2)
+    return cmyk_jpeg(arr, progressive=name != "cmyk")
 
 
 @pytest.mark.parametrize("name", ["progressive-gray", "progressive-rgb", "cmyk"])
@@ -482,7 +495,9 @@ def test_ex01_on_jax_matches_and_draws_vs_jax(jpeg_views, monkeypatch):
 
 def ex01_on_jax_matches_and_draws_vs_jax(jpeg_views, monkeypatch):
     """JAX's ``run_two_view`` (Pillow decodes and writes) and the port's
-    ex01 (Pillow blocked) given JAX's ``cache.npz`` and RANSAC draws."""
+    ex01 (Pillow blocked) given JAX's ``cache.npz`` and RANSAC draws, on
+    a pair of RGB files of any size and of any format both write
+    (``rect-*`` in the inputs' format)."""
     from spectavi_tpu.pipeline.two_view import run_two_view as jax_run_two_view
     from spectavi_tpu_torch.pipeline import ex01
     from test_torch_entry_points import EX01_ARGS, _ply_colors
@@ -514,7 +529,7 @@ def ex01_on_jax_matches_and_draws_vs_jax(jpeg_views, monkeypatch):
     colors = [_ply_colors(p) for p in ply]
     np.testing.assert_array_equal(*colors)
     assert len(np.unique(colors[0], axis=0)) > 10
-    W = 160
+    W = pio.imread(paths[1], dtype="uint8").shape[1]
     for i, p in enumerate(paths):
         name = os.path.basename(p)
         # the float rectification of the CPU route, as both writers store it
@@ -536,7 +551,7 @@ def ex01_on_jax_matches_and_draws_vs_jax(jpeg_views, monkeypatch):
         # the files: Pillow's files of each side's pixels, so identical
         # wherever no sample moved
         got, want = ((d / f"rect-{name}").read_bytes() for d in (out, jdir))
-        assert got == _pillow_jpeg(a) and want == _pillow_jpeg(b)
+        assert got == _pillow_file(a, p) and want == _pillow_file(b, p)
         if not moved.any():
             assert got == want
         assert pio.imread(str(out / f"rect-{name}"), dtype="uint8").shape == a.shape

@@ -10,11 +10,12 @@ pipelines from progressive files against the JAX package.
   and 1x4 (the same MCU count and block order), files that a small
   entropy coder here writes at any sampling factors (sequential and
   progressive), and a bounded ``hypothesis`` search.
-* Left to Pillow: progressive files cut after scan k (coefficients
-  left unrefined, which libjpeg-turbo smooths) and non-integral
-  sampling factors give None, and ``imread`` gives Pillow's array; with
-  Pillow blocked (in a subprocess) they raise an ``ImportError`` that
-  names it, while complete progressive files are read.
+* Progressive files cut after scan k (coefficients left unrefined,
+  which libjpeg-turbo smooths) are the codec's: ``read_jpeg`` and
+  ``imread`` give Pillow's array, with Pillow blocked too (in a
+  subprocess), as for complete progressive files
+  (``test_torch_jpeg_smoothing.py`` holds the smoothing to Pillow).
+  Non-integral sampling factors give None.
 * Malformed progressive files raise ``ValueError`` in a subprocess that
   exits cleanly; so does a progressive file without DHT (Pillow fails
   too) and a file whose coefficients drive the inverse DCT past the
@@ -148,14 +149,17 @@ def _segment(marker, body):
     return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
 
 
-def coded_jpeg(rng, h, w, factors, restart=0, progressive=False, eob_run=None):
+def coded_jpeg(rng, h, w, factors, restart=0, progressive=False, eob_run=None, scans=None,
+               quant=None):
     """A JPEG of random quantized coefficients with ``factors`` ((h, v)
-    a component) written here: JFIF, a flat quantization table, one DC
-    and one AC table with every code 4 and 8 bits long.  Sequential: one
-    scan.  Progressive: a DC scan of every component, then one AC scan
-    of the whole band for each, all at Al = 0 (so nothing is left
-    unrefined).  ``eob_run``: the first AC scan is one end-of-band run
-    of that many blocks and no coefficient has AC."""
+    a component) written here: JFIF, a flat quantization table (or
+    ``quant``, 64 values in zigzag order), one DC and one AC table with
+    every code 4 and 8 bits long.  Sequential: one scan.  Progressive: a
+    DC scan of every component, then one AC scan of the whole band for
+    each, all at Al = 0 (so nothing is left unrefined), or the first
+    scans ``scans``, ``(components, Ss, Se, Al)`` each, whose bands no
+    later scan refines.  ``eob_run``: the first AC scan is one
+    end-of-band run of that many blocks and no coefficient has AC."""
     nc = len(factors)
     hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
     mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
@@ -171,13 +175,15 @@ def coded_jpeg(rng, h, w, factors, restart=0, progressive=False, eob_run=None):
     for i, (fh, fv) in enumerate(factors):
         sof += bytes([i + 1, (fh << 4) | fv, 0])
     out = (b"\xff\xd8" + _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-           + _segment(0xDB, bytes([0] + [8] * 64)) + _segment(0xC2 if progressive else 0xC0, sof)
+           + _segment(0xDB, bytes([0] + (quant or [8] * 64)))
+           + _segment(0xC2 if progressive else 0xC0, sof)
            + _segment(0xC4, b"\x00" + _DC_TABLE[0]) + _segment(0xC4, b"\x10" + _AC_TABLE[0]))
     if restart:
         out += _segment(0xDD, restart.to_bytes(2, "big"))
-    scans = ([(list(range(nc)), 0, 0)] + [([i], 1, 63) for i in range(nc)] if progressive
-             else [(list(range(nc)), 0, 63)])
-    for comps, ss, se in scans:
+    if scans is None:
+        scans = ([(list(range(nc)), 0, 0, 0)] + [([i], 1, 63, 0) for i in range(nc)]
+                 if progressive else [(list(range(nc)), 0, 63, 0)])
+    for comps, ss, se, al in scans:
         if len(comps) > 1:
             mcus = [[(i, coefs[i][my * factors[i][1] + y, mx * factors[i][0] + x])
                      for i in comps for y in range(factors[i][1]) for x in range(factors[i][0])]
@@ -194,7 +200,9 @@ def coded_jpeg(rng, h, w, factors, restart=0, progressive=False, eob_run=None):
                 bits, pred = _Bits(), [0] * nc
             for i, blk in mcu:
                 if ss == 0:
-                    diff, pred[i] = blk[0] - pred[i], blk[0]
+                    # the point transform: DC shifted, AC magnitudes shifted
+                    dc = int(blk[0]) >> al
+                    diff, pred[i] = dc - pred[i], dc
                     s = abs(int(diff)).bit_length()
                     bits.code(_DC_TABLE, s)
                     bits.value(diff)
@@ -208,18 +216,22 @@ def coded_jpeg(rng, h, w, factors, restart=0, progressive=False, eob_run=None):
                     continue
                 run = 0
                 for k in range(max(ss, 1), se + 1):
-                    if blk[k] == 0:
+                    v = int(np.sign(blk[k])) * (abs(int(blk[k])) >> al)
+                    if v == 0:
                         run += 1
                         continue
-                    s = abs(int(blk[k])).bit_length()
+                    while run > 15:
+                        bits.code(_AC_TABLE, 0xF0)
+                        run -= 16
+                    s = abs(v).bit_length()
                     bits.code(_AC_TABLE, (run << 4) | s)
-                    bits.value(blk[k])
+                    bits.value(v)
                     run = 0
                 if run:
                     bits.code(_AC_TABLE, 0x00)
         data += bits.flush()
         sos = bytes([len(comps)]) + b"".join(bytes([i + 1, 0x00]) for i in comps)
-        out += _segment(0xDA, sos + bytes([ss, se, 0])) + data
+        out += _segment(0xDA, sos + bytes([ss, se, al])) + data
     return out + b"\xff\xd9"
 
 
@@ -348,14 +360,14 @@ def test_decode_random_files_equal_pillow(h, w, mode, sub, quality, content, res
                                  **kw))
 
 
-# --- left to Pillow --------------------------------------------------------
+# --- cut progressive files ------------------------------------------------
 
 
 @pytest.mark.parametrize("mode", ["L", "RGB"])
 def test_partial_scans_go_to_pillow(tmp_path, mode):
     """Pillow's progressive file cut after scan k: libjpeg-turbo smooths
-    the blocks whose coefficients are not refined, the codec hands the
-    file on."""
+    the blocks whose coefficients are not refined, and so does the codec
+    (the file no longer goes to Pillow)."""
     arr = _pixels(np.random.default_rng(22), 61, 83, 3 if mode == "RGB" else 1)
     data = _pillow_jpeg(arr, progressive=True)
     scans = data.count(b"\xff\xda")
@@ -363,7 +375,7 @@ def test_partial_scans_go_to_pillow(tmp_path, mode):
     full = np.asarray(Image.open(io.BytesIO(data)))
     for k in range(1, scans):
         part = cut_after_scan(data, k)
-        assert read_jpeg(part) is None
+        _same_as_pillow(part)
         path = tmp_path / f"{k}.jpg"
         path.write_bytes(part)
         ref = np.asarray(Image.open(path))
@@ -376,31 +388,25 @@ def test_partial_scans_go_to_pillow(tmp_path, mode):
 
 def test_progressive_without_pillow(tmp_path):
     """With Pillow blocked, complete progressive files (and a patched
-    4:4:0 one) are read; one with unrefined coefficients raises an
-    ImportError that names Pillow."""
+    4:4:0 one) are read, and so is one with unrefined coefficients."""
     rng = np.random.default_rng(23)
     files = {"gray": _pillow_jpeg(_pixels(rng, 29, 35, 1), progressive=True),
              "rgb": _pillow_jpeg(_pixels(rng, 29, 35, 3), progressive=True),
              "rgb-440": patched(_pixels(rng, 29, 35, 3), "4:4:0", progressive=True)}
+    files["unrefined"] = cut_after_scan(files["rgb"], 3)
     for name, data in files.items():
         (tmp_path / f"{name}.jpg").write_bytes(data)
-    (tmp_path / "unrefined.jpg").write_bytes(cut_after_scan(files["rgb"], 3))
     code = (
         "import numpy as np\n"
         "from spectavi_tpu_torch.pipeline.io import imread\n"
         f"d = {str(tmp_path)!r}\n"
         f"for n in {sorted(files)!r}:\n"
-        "    np.save(f'{d}/{n}.npy', imread(f'{d}/{n}.jpg', dtype='uint8'))\n"
-        "try:\n"
-        "    imread(f'{d}/unrefined.jpg')\n"
-        "except ImportError as e:\n"
-        "    print('ImportError:', e)\n")
+        "    np.save(f'{d}/{n}.npy', imread(f'{d}/{n}.jpg', dtype='uint8'))\n")
     out = _run_blocked(code)
     assert out.returncode == 0, out.stderr
     for name in files:
         np.testing.assert_array_equal(np.load(tmp_path / f"{name}.npy"),
                                       np.asarray(Image.open(tmp_path / f"{name}.jpg")))
-    assert "ImportError:" in out.stdout and "Pillow" in out.stdout
 
 
 # --- malformed progressive files -----------------------------------------

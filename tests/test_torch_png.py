@@ -14,15 +14,14 @@
   Pillow reads back to the same pixels.
 * The variants that went to Pillow before the codec read them: 16-bit
   and interlaced PNG now decode in the codec, with Pillow unreachable; a
-  progressive JPEG cut after its second scan (coefficients left
-  unrefined) still goes to Pillow.  Malformed files raise
+  progressive CMYK JPEG (4 components) still goes to Pillow.  Malformed files raise
   ``ValueError``: a bad CRC, a truncated file, no IDAT, a bad filter
   type, too little data, a colour type and bit depth PNG does not pair,
   image data that does not inflate, an Adam7 stream one byte short,
   sub-byte rows of the wrong length.
 * With Pillow blocked (``sys.modules["PIL"] = None``, in a subprocess):
   ``imread`` of an 8-bit, a 16-bit and an Adam7 PNG and of a baseline
-  JPEG works, and of such a cut progressive JPEG raises an
+  JPEG works, and of such a progressive CMYK JPEG raises an
   ``ImportError`` that names Pillow; ex01 from 8-bit, 16-bit and Adam7
   pairs and ex02 from 8-bit, 16-bit and Adam7 views run on the CPU and
   write what the runs with Pillow present write; ex01 ``--plots`` with
@@ -215,10 +214,10 @@ def test_writer_refuses_other_arrays(tmp_path):
 @pytest.mark.parametrize("variant", ["16-bit", "interlaced", "progressive-jpeg"])
 def test_other_variants_go_to_pillow(tmp_path, monkeypatch, variant):
     """16-bit and interlaced PNG, which went to Pillow, decode in the
-    codec with Pillow unreachable; a progressive JPEG with coefficients
-    left unrefined still goes to Pillow."""
+    codec with Pillow unreachable; a progressive JPEG of 4 components
+    (CMYK) still goes to Pillow."""
     from spectavi_tpu_torch.pipeline.jpeg import read_jpeg
-    from test_torch_jpeg import cut_after_scan
+    from test_torch_jpeg import cmyk_jpeg
 
     rng = np.random.default_rng(3)
     arr = rng.integers(0, 256, (21, 30), dtype=np.uint8)
@@ -228,9 +227,7 @@ def test_other_variants_go_to_pillow(tmp_path, monkeypatch, variant):
     elif variant == "interlaced":
         path.write_bytes(_png(arr, 0, [0], interlace=1))
     else:
-        f = io.BytesIO()
-        Image.fromarray(arr).save(f, format="JPEG", quality=90, progressive=True)
-        path.write_bytes(cut_after_scan(f.getvalue(), 2))
+        path.write_bytes(cmyk_jpeg(arr, quality=90, progressive=True))
     if variant == "progressive-jpeg":
         assert read_jpeg(path.read_bytes()) is None
         got = _same_as_pillow(path)
@@ -339,15 +336,13 @@ def depth_views(views):
 
 
 def test_imread_without_pillow(views, depth_views, tmp_path):
-    from test_torch_jpeg import cut_after_scan
+    from test_torch_jpeg import cmyk_jpeg
 
     _, paths, _ = views
     jpg, progressive = tmp_path / "im.jpg", tmp_path / "progressive.jpg"
     Image.fromarray(np.full((8, 12), 77, np.uint8)).save(jpg)
-    f = io.BytesIO()
-    Image.fromarray(np.zeros((8, 8), np.uint8)).save(f, format="JPEG", progressive=True)
-    # cut after its second scan: coefficients left unrefined go to Pillow
-    progressive.write_bytes(cut_after_scan(f.getvalue(), 2))
+    # a progressive file of 4 components (CMYK) goes to Pillow
+    progressive.write_bytes(cmyk_jpeg(np.zeros((8, 8), np.uint8), progressive=True))
     pngs = [depth_views["16-bit"][0], depth_views["adam7"][0]]
     code = (
         "import numpy as np\n"
