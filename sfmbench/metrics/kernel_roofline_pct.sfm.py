@@ -1,0 +1,6 @@
+"""kernel_roofline_pct.sfm: least time over device time of every K1, K2
+and K3 launch in the profiled multi-view jobs, in percent."""
+
+
+def read(run):
+    return run.roofline_pct()
