@@ -30,6 +30,7 @@ from spectavi_tpu_torch import resolve_device
 from spectavi_tpu_torch.mvg.core import inv3x3
 from spectavi_tpu_torch.ops.sift_desc import describe, finish_descriptors
 from spectavi_tpu_torch.ops.sift_orient import orient_hist, orientation_peaks
+from spectavi_tpu_torch.utils.profiling import annotate
 
 S = 3
 S_MIN = -1
@@ -427,18 +428,21 @@ def _sift_batched_same_shape(ims, peak_thresh, edge_thresh, magnif, o_min, n_oct
         n_octaves = num_octaves(H0, W0, o_min)
     budgets = _octave_budgets(H0, W0, o_min, n_octaves, max_kp_per_octave)
 
-    first = _base_first(
-        torch.as_tensor(np.stack(ims), dtype=torch.float32, device=device), o_min
-    )
+    with annotate("sift.upload"):
+        first = _base_first(
+            torch.as_tensor(np.stack(ims), dtype=torch.float32, device=device), o_min
+        )
     comps, grads = [], []
     for oi, budget in enumerate(budgets):
-        first, mod, ang, det = _octave_detect(first, peak_thresh, edge_thresh, budget)
-        grads.append((mod, ang))
-        comps.append(_compact_detections(det))
-        for bi, n_candidates in enumerate(det[:, 5, 0].tolist()):
-            if n_candidates > budget:
+        with annotate("sift.detect"):
+            first, mod, ang, det = _octave_detect(first, peak_thresh, edge_thresh, budget)
+            grads.append((mod, ang))
+            comps.append(_compact_detections(det))
+            n_candidates = det[:, 5, 0].tolist()
+        for bi, n in enumerate(n_candidates):
+            if n > budget:
                 warnings.warn(
-                    f"SIFT octave {oi}: {int(n_candidates)} DoG candidates exceed the "
+                    f"SIFT octave {oi}: {int(n)} DoG candidates exceed the "
                     f"static budget {budget}; keeping the strongest |DoG| "
                     "responses. Raise max_kp_per_octave to keep more.",
                     stacklevel=4,
@@ -447,37 +451,41 @@ def _sift_batched_same_shape(ims, peak_thresh, edge_thresh, magnif, o_min, n_oct
         (bi, oi, comps[oi][bi], comps[oi][bi].shape[1])
         for bi in range(B) for oi in range(len(budgets)) if comps[oi][bi].shape[1] > 0
     ]
-    angles = _orient_jobs(det_jobs, grads)
+    with annotate("sift.orient"):
+        angles = _orient_jobs(det_jobs, grads)
 
     # (keypoint, angle) rows, keypoint-major, compacted to describe jobs
     jobs = []
-    for bi, oi, det_sel, _ in det_jobs:
-        th, av = angles[(bi, oi)]
-        rows = av.reshape(-1).nonzero()[:, 0]
-        if rows.numel() == 0:
-            continue
-        kp = rows // MAX_ANGLES
-        meta_sel = torch.stack(
-            [th.reshape(-1)[rows], torch.ones_like(rows, dtype=th.dtype), det_sel[0][kp],
-             det_sel[1][kp], det_sel[2][kp], det_sel[3][kp]]
-        )
-        jobs.append((bi, oi, meta_sel, rows.numel()))
+    with annotate("sift.select"):
+        for bi, oi, det_sel, _ in det_jobs:
+            th, av = angles[(bi, oi)]
+            rows = av.reshape(-1).nonzero()[:, 0]
+            if rows.numel() == 0:
+                continue
+            kp = rows // MAX_ANGLES
+            meta_sel = torch.stack(
+                [th.reshape(-1)[rows], torch.ones_like(rows, dtype=th.dtype), det_sel[0][kp],
+                 det_sel[1][kp], det_sel[2][kp], det_sel[3][kp]]
+            )
+            jobs.append((bi, oi, meta_sel, rows.numel()))
 
-    per_img, img_jobs_map = _describe_jobs_dev(jobs, grads, float(magnif))
+    with annotate("sift.describe"):
+        per_img, img_jobs_map = _describe_jobs_dev(jobs, grads, float(magnif))
     out = []
-    for bi in range(B):
-        metas = [
-            torch.stack([m[2] * 2.0 ** (o_min + oi), m[3] * 2.0 ** (o_min + oi),
-                         m[4] * 2.0 ** (o_min + oi), m[0]], dim=1)
-            for (_, oi, m, _) in img_jobs_map.get(bi, [])
-        ]
-        meta = (torch.cat(metas) if metas else torch.zeros((0, 4), device=device)).cpu().numpy()
-        desc = per_img.get(bi, torch.zeros((0, 128), dtype=torch.uint8, device=device))
-        if return_device:
-            out.append({"meta": meta.astype(np.float32), "desc": desc})
-        else:
-            out.append(np.concatenate(
-                [meta, desc.cpu().numpy().astype(np.float32)], axis=1).astype(np.float32))
+    with annotate("sift.download"):
+        for bi in range(B):
+            metas = [
+                torch.stack([m[2] * 2.0 ** (o_min + oi), m[3] * 2.0 ** (o_min + oi),
+                             m[4] * 2.0 ** (o_min + oi), m[0]], dim=1)
+                for (_, oi, m, _) in img_jobs_map.get(bi, [])
+            ]
+            meta = (torch.cat(metas) if metas else torch.zeros((0, 4), device=device)).cpu().numpy()
+            desc = per_img.get(bi, torch.zeros((0, 128), dtype=torch.uint8, device=device))
+            if return_device:
+                out.append({"meta": meta.astype(np.float32), "desc": desc})
+            else:
+                out.append(np.concatenate(
+                    [meta, desc.cpu().numpy().astype(np.float32)], axis=1).astype(np.float32))
     return out
 
 

@@ -32,6 +32,7 @@ from spectavi_tpu_torch.mvg.core import (
 )
 from spectavi_tpu_torch.mvg.sevenpoint import seven_point
 from spectavi_tpu_torch.mvg.triangulate import triangulate_fast_full
+from spectavi_tpu_torch.utils.profiling import annotate, count
 
 DEFAULT_OPTIONS = {
     "required_percent_inliers": 0.9,
@@ -355,24 +356,26 @@ def ransac_fitter(x0, x1, options=None, generator=None, batch_trials=8192,
     progressbar = bool(opts.get("progressbar"))
     while tries < max_tries:
         live = min(batch_trials, max_tries - tries)
-        out = ransac_fit_block(
-            generator, x0t, x1t, pmask, reproj, svr, live, batch_trials, lo_iters
-        )
-        count = int(out[2])
+        with annotate("ransac.block"):
+            out = ransac_fit_block(
+                generator, x0t, x1t, pmask, reproj, svr, live, batch_trials, lo_iters
+            )
+            count("ransac_trials", live)
+            n_best = int(out[2])
         if progressbar:
             frac = min((tries + live) / max_tries, 1.0)
             n = int(_PROGRESS_BAR_LENGTH * frac)
             print(
                 "\r[" + "=" * n + " " * (_PROGRESS_BAR_LENGTH - n)
-                + f"] {tries + live}/{max_tries} trials, best {max(count, best_count, 0)}",
+                + f"] {tries + live}/{max_tries} trials, best {max(n_best, best_count, 0)}",
                 end="", flush=True,
             )
-        if count > best_count + max(2, int(0.005 * N)):
+        if n_best > best_count + max(2, int(0.005 * N)):
             stalled = 0
         else:
             stalled += 1
-        if count > best_count:
-            best_count = count
+        if n_best > best_count:
+            best_count = n_best
             best = out
         tries += live
         if best_count >= required_count:
@@ -402,11 +405,12 @@ def ransac_fitter(x0, x1, options=None, generator=None, batch_trials=8192,
             "inlier_percent": best_count / N,
             "inlier_idx": np.zeros((0,), np.int32),
         }
-    mask = mask.cpu().numpy()
-    return {
-        "success": bool(success),
-        "essential": essential.cpu().numpy(),
-        "camera": camera.cpu().numpy(),
-        "inlier_percent": best_count / N,
-        "inlier_idx": np.where(mask[:N])[0].astype(np.int32),
-    }
+    with annotate("ransac.download"):
+        mask = mask.cpu().numpy()
+        return {
+            "success": bool(success),
+            "essential": essential.cpu().numpy(),
+            "camera": camera.cpu().numpy(),
+            "inlier_percent": best_count / N,
+            "inlier_idx": np.where(mask[:N])[0].astype(np.int32),
+        }

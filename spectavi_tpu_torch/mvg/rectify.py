@@ -15,6 +15,7 @@ import torch
 
 from spectavi_tpu_torch import resolve_device
 from spectavi_tpu_torch.mvg.core import fundamental_from_cameras
+from spectavi_tpu_torch.utils.profiling import annotate
 
 
 def _resample_lines(im, xx, yy, W, H):
@@ -206,29 +207,32 @@ def rectify_pair_quantized(P0, P1, im0, im1, sampling_factor=1.0, device="cuda")
         im1 = im1.astype(np.float32, copy=False)
         scales = (255.0, 255.0)
     H, W, C = im0.shape
-    P0f = torch.as_tensor(np.asarray(P0), dtype=torch.float32, device=dev)
-    P1f = torch.as_tensor(np.asarray(P1), dtype=torch.float32, device=dev)
-    ly, hy, lx, hx = (
-        int(v) for v in _rectify_row_bbox(P0f, P1f, (H, W, C), float(sampling_factor)).tolist()
-    )
+    with annotate("rectify.bbox"):
+        P0f = torch.as_tensor(np.asarray(P0), dtype=torch.float32, device=dev)
+        P1f = torch.as_tensor(np.asarray(P1), dtype=torch.float32, device=dev)
+        ly, hy, lx, hx = (
+            int(v)
+            for v in _rectify_row_bbox(P0f, P1f, (H, W, C), float(sampling_factor)).tolist()
+        )
     if hy < ly or hx < lx:
         e_im = np.zeros((0, 0, C), np.uint8)
         e_idx = np.zeros((0, 0), np.int32)
         return e_im, e_im.copy(), e_idx, e_idx.copy()
     height = hy - ly + 1
-    r0u, r1u, y0, y1, xi = _rectify_window(
-        P0f, P1f,
-        torch.as_tensor(np.ascontiguousarray(im0), device=dev),
-        torch.as_tensor(np.ascontiguousarray(im1), device=dev),
-        ly, scales[0], scales[1], height, float(sampling_factor),
-    )
+    with annotate("rectify.window"):
+        r0u, r1u, y0, y1, xi = _rectify_window(
+            P0f, P1f,
+            torch.as_tensor(np.ascontiguousarray(im0), device=dev),
+            torch.as_tensor(np.ascontiguousarray(im1), device=dev),
+            ly, scales[0], scales[1], height, float(sampling_factor),
+        )
     cs = slice(lx, hx + 1)
-    r0u, r1u = r0u[:, cs].cpu().numpy(), r1u[:, cs].cpu().numpy()
-    xiw = xi[None, cs].cpu().numpy().astype(np.int32)
-    idxs = []
-    for y in (y0, y1):
-        yw = y[:, cs].cpu().numpy().astype(np.int32)
-        idxs.append(np.where(yw < 0, -1, yw * W + xiw))
+    with annotate("rectify.download"):
+        r0u, r1u = r0u[:, cs].cpu().numpy(), r1u[:, cs].cpu().numpy()
+        xiw = xi[None, cs].cpu().numpy().astype(np.int32)
+        yws = [y[:, cs].cpu().numpy().astype(np.int32) for y in (y0, y1)]
+    with annotate("rectify.index"):
+        idxs = [np.where(yw < 0, -1, yw * W + xiw) for yw in yws]
     return r0u, r1u, idxs[0], idxs[1]
 
 

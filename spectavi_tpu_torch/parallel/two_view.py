@@ -25,6 +25,7 @@ from spectavi_tpu_torch.match.bruteforce import l1_topk2_xla, topk_lowest
 from spectavi_tpu_torch.mvg.ransac import ransac_essential_core
 from spectavi_tpu_torch.ops.l2nn import l2_topk2
 from spectavi_tpu_torch.parallel.mesh import BLOCKS, PAIRS, all_gather, local_shard
+from spectavi_tpu_torch.utils.profiling import annotate, count
 
 
 def _merge_block_topk(idx, dist, group, block_rank, block_rows):
@@ -161,28 +162,31 @@ def make_two_view_step(mesh=None, trials=512, reproj_allowed=1e-3, svr_allowed=3
             if sample is not None:
                 sample = local_shard(mesh, sample, PAIRS)
         B, Y = desc1.shape[:2]
-        idx, dist = (torch.stack(t) for t in zip(*(match(desc0[b], desc1[b])
-                                                  for b in range(B))))
-        idx = idx.long()
-        # inverted-Lowe ratio test on squared L2 distances
-        d1 = torch.clamp(dist[..., 0].to(pts0.dtype), min=1e-12)
-        d2 = dist[..., 1].to(pts0.dtype)
-        qi = torch.arange(Y, device=dev)
-        ratio_ok = ((d2 >= (min_ratio**2) * d1) & (idx[..., 0] < nx_t[:, None])
-                    & (qi[None] < ny_t[:, None]))
-        C = min(compact_to, Y)
-        margin = torch.where(ratio_ok, d2 / d1, torch.full_like(d1, -1.0))
-        topq = torch.sort(margin, dim=1, descending=True, stable=True).indices[:, :C]
-        cmask = torch.gather(ratio_ok, 1, topq)
-        src = torch.gather(idx[..., 0], 1, topq)
-        x0 = torch.take_along_dim(pts0, src[..., None], dim=1)
-        x1 = torch.take_along_dim(pts1, topq[..., None], dim=1)
-        if sample is not None:
-            sample = torch.as_tensor(sample, dtype=torch.long, device=dev)
-        out = ransac_essential_core(generator, x0, x1, trials,
-                                    reproj_allowed, svr_allowed, cmask, sample=sample)
-        inlier_full = torch.zeros((B, Y), dtype=torch.bool, device=dev)
-        inlier_full.scatter_(1, topq, out["inlier_mask"])
+        with annotate("pairs.match"):
+            idx, dist = (torch.stack(t) for t in zip(*(match(desc0[b], desc1[b])
+                                                      for b in range(B))))
+            idx = idx.long()
+            # inverted-Lowe ratio test on squared L2 distances
+            d1 = torch.clamp(dist[..., 0].to(pts0.dtype), min=1e-12)
+            d2 = dist[..., 1].to(pts0.dtype)
+            qi = torch.arange(Y, device=dev)
+            ratio_ok = ((d2 >= (min_ratio**2) * d1) & (idx[..., 0] < nx_t[:, None])
+                        & (qi[None] < ny_t[:, None]))
+            C = min(compact_to, Y)
+            margin = torch.where(ratio_ok, d2 / d1, torch.full_like(d1, -1.0))
+            topq = torch.sort(margin, dim=1, descending=True, stable=True).indices[:, :C]
+            cmask = torch.gather(ratio_ok, 1, topq)
+            src = torch.gather(idx[..., 0], 1, topq)
+            x0 = torch.take_along_dim(pts0, src[..., None], dim=1)
+            x1 = torch.take_along_dim(pts1, topq[..., None], dim=1)
+        with annotate("pairs.ransac"):
+            if sample is not None:
+                sample = torch.as_tensor(sample, dtype=torch.long, device=dev)
+            out = ransac_essential_core(generator, x0, x1, trials,
+                                        reproj_allowed, svr_allowed, cmask, sample=sample)
+            count("ransac_trials", int(trials) * B)
+            inlier_full = torch.zeros((B, Y), dtype=torch.bool, device=dev)
+            inlier_full.scatter_(1, topq, out["inlier_mask"])
         outs = (out["essential"], out["camera"], out["count"], inlier_full)
         return outs + (idx[..., 0], ratio_ok) if masked else outs
 

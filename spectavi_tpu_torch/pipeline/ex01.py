@@ -55,12 +55,14 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--trace", default=None, metavar="DIR",
                         help="write a torch.profiler trace of the run to DIR "
-                        "(chrome://tracing, Perfetto or tensorboard)")
+                        "(chrome://tracing, Perfetto or tensorboard), with the "
+                        "pipeline's step tree beside the kernels")
     args = parser.parse_args(argv)
 
     import torch
 
     from spectavi_tpu_torch import resolve_device
+    from spectavi_tpu_torch.utils.profiling import annotate, trace
 
     generator = torch.Generator(device=resolve_device(args.device))
     generator.manual_seed(args.seed)
@@ -68,12 +70,8 @@ def main(argv=None):
     if args.reproj is not None:
         ransac_options = {"reprojection_error_allowed": args.reproj,
                           "find_best_even_in_failure": True}
-    trace_ctx = contextlib.nullcontext()
-    if args.trace:
-        from spectavi_tpu_torch.utils.profiling import trace
-
-        trace_ctx = trace(args.trace)
-    with trace_ctx:
+    trace_ctx = trace(args.trace) if args.trace else contextlib.nullcontext()
+    with trace_ctx, annotate("cli"):
         res = run_two_view(
             args.images,
             args.K,

@@ -8,12 +8,13 @@ intrinsics matrix, and writes ``sparse_cloud.ply``, ``poses.txt`` and
     python -m spectavi_tpu_torch.pipeline.ex02 IM0 IM1 [IM2 ...] K.txt
         [--outdir sfm_out] [--pairs sequential|exhaustive]
         [--min_ratio R] [--ba_iters N] [--checkpoint state.npz]
-        [--seed N] [--device cuda|cpu]
+        [--seed N] [--device cuda|cpu] [--trace DIR]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 
 def main(argv=None):
@@ -27,6 +28,10 @@ def main(argv=None):
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--seed", default=0, type=int)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the run to DIR "
+                    "(chrome://tracing, Perfetto or tensorboard), with the "
+                    "pipeline's step tree beside the kernels")
     args = ap.parse_args(argv)
 
     images, K_path = args.inputs[:-1], args.inputs[-1]
@@ -37,20 +42,23 @@ def main(argv=None):
 
     from spectavi_tpu_torch import resolve_device
     from spectavi_tpu_torch.pipeline.sfm import run_sfm
+    from spectavi_tpu_torch.utils.profiling import annotate, trace
 
     generator = torch.Generator(device=resolve_device(args.device))
     generator.manual_seed(args.seed)
-    res = run_sfm(
-        images,
-        K_path,
-        outdir=args.outdir,
-        pairs=args.pairs,
-        min_ratio=args.min_ratio,
-        ba_iters=args.ba_iters,
-        generator=generator,
-        checkpoint=args.checkpoint,
-        device=args.device,
-    )
+    trace_ctx = trace(args.trace) if args.trace else contextlib.nullcontext()
+    with trace_ctx, annotate("cli"):
+        res = run_sfm(
+            images,
+            K_path,
+            outdir=args.outdir,
+            pairs=args.pairs,
+            min_ratio=args.min_ratio,
+            ba_iters=args.ba_iters,
+            generator=generator,
+            checkpoint=args.checkpoint,
+            device=args.device,
+        )
     print(
         f"done: {res['points'].shape[0]} points, "
         f"BA cost {res['ba_history'][0]:.3e} -> {res['ba_history'][-1]:.3e}; "

@@ -39,29 +39,35 @@ from __future__ import annotations
 import functools as _functools
 import os
 import struct
-import time
 import zlib
 
 import numpy as np
 from numpy.lib.stride_tricks import as_strided
 
 from spectavi_tpu_torch.pipeline.jpeg import read_jpeg, write_jpeg
+from spectavi_tpu_torch.utils import profiling
 
 
 class Timer:
-    """Wall-clock context manager printing per-step timings."""
+    """Per-step wall clock: a step span of
+    :mod:`spectavi_tpu_torch.utils.profiling` named ``span`` (by default
+    ``description``), printing ``description: seconds`` unless
+    ``quiet``.  Host time, no synchronize: see the tracer's notes."""
 
-    def __init__(self, description, quiet=False):
+    def __init__(self, description, quiet=False, span=None):
         self.description = description
         self.quiet = quiet
+        self.span = span or description
         self.elapsed = None
+        self._step = None
 
     def __enter__(self):
-        self.start = time.perf_counter()
+        self._step = profiling.step(self.span).__enter__()
         return self
 
     def __exit__(self, *exc):
-        self.elapsed = time.perf_counter() - self.start
+        self._step.__exit__(*exc)
+        self.elapsed = self._step.elapsed
         if not self.quiet:
             print(f"{self.description}: {self.elapsed}s")
 

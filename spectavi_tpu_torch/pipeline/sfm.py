@@ -32,6 +32,7 @@ from spectavi_tpu_torch.sfm import (
     tracks_to_observations,
     triangulate_nview,
 )
+from spectavi_tpu_torch.utils.profiling import annotate, spanned, step
 
 
 def match_pair(kp_a, kp_b, min_ratio=1.75, device="cuda"):
@@ -85,6 +86,7 @@ def _match_pair_loop(kps, pts_cal, i, j, generator, ropts, min_ratio, quiet, dev
     return rec, edge
 
 
+@spanned("pairs.batch")
 def _match_pairs_batched(descs, pts_cal, pair_list, generator, ropts, min_ratio, trials=8192,
                          pad_to=256, compact_to=4096, device="cuda"):
     """Every pair's matching and RANSAC in one batched step
@@ -132,9 +134,11 @@ def _match_pairs_batched(descs, pts_cal, pair_list, generator, ropts, min_ratio,
         fill = d[:1].expand(rows - n, D) if replicate else d.new_zeros((rows - n, D))
         return torch.cat([d, fill], dim=0)
 
-    d0 = torch.stack([pad_rows(descs[i], X, True) for i, _ in pair_list])
-    d1 = torch.stack([pad_rows(descs[j], Y, False) for _, j in pair_list])
-    step = make_two_view_step(
+    with annotate("pairs.upload"):
+        d0 = torch.stack([pad_rows(descs[i], X, True) for i, _ in pair_list])
+        d1 = torch.stack([pad_rows(descs[j], Y, False) for _, j in pair_list])
+        p0t, p1t = torch.as_tensor(p0, device=dev), torch.as_tensor(p1, device=dev)
+    pair_step = make_two_view_step(
         trials=trials,
         reproj_allowed=ropts["reprojection_error_allowed"],
         svr_allowed=ropts["singular_value_ratio_allowed"],
@@ -142,28 +146,29 @@ def _match_pairs_batched(descs, pts_cal, pair_list, generator, ropts, min_ratio,
         masked=True,
         compact_to=compact_to,
     )
-    out = step(d0, d1, torch.as_tensor(p0, device=dev), torch.as_tensor(p1, device=dev),
-               generator, nx, ny)
-    E, P1, count, inl_mask, midx0, ratio_ok = (t.cpu().numpy() for t in out)
+    out = pair_step(d0, d1, p0t, p1t, generator, nx, ny)
+    with annotate("pairs.download"):
+        E, P1, n_best, inl_mask, midx0, ratio_ok = (t.cpu().numpy() for t in out)
 
     results = []
-    for b, (i, j) in enumerate(pair_list):
-        n_match = int(ratio_ok[b, : ny[b]].sum())
-        # survivors beyond the compaction bucket never competed, so the
-        # consensus denominator is the competitor count
-        n_competed = min(n_match, compact_to)
-        inl_j = np.where(inl_mask[b, : ny[b]])[0].astype(np.int64)
-        inl_i = midx0[b, inl_j].astype(np.int64)
-        results.append({
-            "pair": (i, j),
-            "n_matches": n_match,
-            "camera": P1[b],
-            "essential": E[b],
-            "count": int(count[b]),
-            "idx_i": inl_i,
-            "idx_j": inl_j,
-            "inlier_percent": (len(inl_j) / n_competed) if n_competed else 0.0,
-        })
+    with annotate("pairs.unpack"):
+        for b, (i, j) in enumerate(pair_list):
+            n_match = int(ratio_ok[b, : ny[b]].sum())
+            # survivors beyond the compaction bucket never competed, so the
+            # consensus denominator is the competitor count
+            n_competed = min(n_match, compact_to)
+            inl_j = np.where(inl_mask[b, : ny[b]])[0].astype(np.int64)
+            inl_i = midx0[b, inl_j].astype(np.int64)
+            results.append({
+                "pair": (i, j),
+                "n_matches": n_match,
+                "camera": P1[b],
+                "essential": E[b],
+                "count": int(n_best[b]),
+                "idx_i": inl_i,
+                "idx_j": inl_j,
+                "inlier_percent": (len(inl_j) / n_competed) if n_competed else 0.0,
+            })
     return skipped + results
 
 
@@ -173,14 +178,17 @@ def run_sfm(image_paths, K_path, outdir=None, pairs="sequential", min_ratio=1.75
     """Incremental SfM over image files sharing the intrinsics in
     ``K_path``; see :func:`run_sfm_arrays`."""
     resolve_device(device)
-    grays = [imread(p, dtype="float32", force_grayscale=True) for p in image_paths]
+    with annotate("decode"):
+        grays = [imread(p, dtype="float32", force_grayscale=True) for p in image_paths]
+        K = np.loadtxt(K_path)
     return run_sfm_arrays(
-        grays, np.loadtxt(K_path), outdir=outdir, pairs=pairs, min_ratio=min_ratio,
+        grays, K, outdir=outdir, pairs=pairs, min_ratio=min_ratio,
         ransac_options=ransac_options, ba_iters=ba_iters, generator=generator, quiet=quiet,
         checkpoint=checkpoint, init=init, loss=loss, pair_backend=pair_backend, device=device,
     )
 
 
+@spanned("sfm")
 def run_sfm_arrays(grays, K, outdir=None, pairs="sequential", min_ratio=1.75,
                    ransac_options=None, ba_iters=15, generator=None, quiet=False,
                    checkpoint=None, init="pnp", loss="huber", pair_backend="auto",
@@ -232,13 +240,24 @@ def run_sfm_arrays(grays, K, outdir=None, pairs="sequential", min_ratio=1.75,
     # descriptors there; the loop backend needs host rows
     device_sift = pair_backend == "batched" and on_card
     outs = None
-    with Timer("sfm-sift", quiet) as t_sift:
+    descs_u8 = None
+    with Timer("sfm-sift", quiet, "sift") as t_sift:
         if device_sift:
-            from spectavi_tpu_torch.features.normalize import normalize_to_ubyte_device
             from spectavi_tpu_torch.features.sift import sift_filter_batch_device
 
             outs = sift_filter_batch_device(grays, device=dev)
             kps_meta = [o["meta"] for o in outs]
+            kps = None  # 132-column host rows are built on demand
+        else:
+            from spectavi_tpu_torch.features import sift_filter_batch
+
+            kps = sift_filter_batch(grays, device=dev)
+            kps_meta = [kp[:, :4] for kp in kps]
+    metrics["sift_seconds"] = t_sift.elapsed
+    if device_sift:
+        from spectavi_tpu_torch.features.normalize import normalize_to_ubyte_device
+
+        with step("quantize") as t_quant:
             # descriptor-only quantization: run_sfm matches kp[:, 4:]
             descs_u8 = [
                 normalize_to_ubyte_device(o["desc"].to(torch.float32))
@@ -246,14 +265,7 @@ def run_sfm_arrays(grays, K, outdir=None, pairs="sequential", min_ratio=1.75,
                 else torch.zeros((0, 128), dtype=torch.uint8, device=dev)
                 for o in outs
             ]
-            kps = None  # 132-column host rows are built on demand
-        else:
-            from spectavi_tpu_torch.features import sift_filter_batch
-
-            kps = sift_filter_batch(grays, device=dev)
-            kps_meta = [kp[:, :4] for kp in kps]
-            descs_u8 = None
-    metrics["sift_seconds"] = t_sift.elapsed
+        metrics["sift_seconds"] += t_quant.elapsed
     metrics["keypoints_per_view"] = [int(m.shape[0]) for m in kps_meta]
     if not quiet:
         for i, m in enumerate(kps_meta):
@@ -289,7 +301,7 @@ def run_sfm_arrays(grays, K, outdir=None, pairs="sequential", min_ratio=1.75,
     pair_matches = {}
     metrics["pairs"] = []
     metrics["pair_backend"] = pair_backend
-    with Timer("sfm-pairs", quiet) as t_pairs:
+    with Timer("sfm-pairs", quiet, "pairs") as t_pairs:
         if pair_backend == "batched":
             if descs_u8 is None:
                 descs_u8 = [
@@ -298,53 +310,56 @@ def run_sfm_arrays(grays, K, outdir=None, pairs="sequential", min_ratio=1.75,
                 ]
             batch = _match_pairs_batched(descs_u8, pts_cal, pair_list, generator, ropts,
                                          min_ratio, device=dev)
-            for res in batch:
-                i, j = res["pair"]
-                if res.get("skipped"):
-                    metrics["pairs"].append({"pair": [i, j], "matches": 0, "skipped": True})
-                    if not quiet:
-                        print(f"  pair ({i},{j}): empty view, skipped")
-                    continue
-                if res["n_matches"] >= 10 and len(res["idx_j"]) < 8:
-                    # the single trial batch found no valid hypothesis:
-                    # retry this pair through the confidence-looped path
-                    rec, edge = _match_pair_loop(host_rows(), pts_cal, i, j, generator, ropts,
-                                                 min_ratio, quiet, dev)
-                    rec["batched_retry"] = True
+            with annotate("pairs.collect"):
+                for res in batch:
+                    i, j = res["pair"]
+                    if res.get("skipped"):
+                        metrics["pairs"].append({"pair": [i, j], "matches": 0, "skipped": True})
+                        if not quiet:
+                            print(f"  pair ({i},{j}): empty view, skipped")
+                        continue
+                    if res["n_matches"] >= 10 and len(res["idx_j"]) < 8:
+                        # the single trial batch found no valid hypothesis:
+                        # retry this pair through the confidence-looped path
+                        with annotate("pairs.retry"):
+                            rec, edge = _match_pair_loop(host_rows(), pts_cal, i, j, generator,
+                                                         ropts, min_ratio, quiet, dev)
+                        rec["batched_retry"] = True
+                        metrics["pairs"].append(rec)
+                        if edge is not None:
+                            edges[(i, j)] = edge
+                            pair_matches[(i, j)] = (edge["idx_i"], edge["idx_j"])
+                        continue
+                    rec = {
+                        "pair": [i, j],
+                        "matches": res["n_matches"],
+                        "inlier_percent": float(res["inlier_percent"]),
+                        "n_inliers": int(len(res["idx_j"])),
+                        # the loop path's statistical rule: success iff the
+                        # inlier fraction clears the required threshold
+                        "success": bool(
+                            res["count"] >= 0
+                            and res["inlier_percent"] >= ropts["required_percent_inliers"]
+                        ),
+                    }
                     metrics["pairs"].append(rec)
-                    if edge is not None:
-                        edges[(i, j)] = edge
-                        pair_matches[(i, j)] = (edge["idx_i"], edge["idx_j"])
-                    continue
-                rec = {
-                    "pair": [i, j],
-                    "matches": res["n_matches"],
-                    "inlier_percent": float(res["inlier_percent"]),
-                    "n_inliers": int(len(res["idx_j"])),
-                    # the loop path's statistical rule: success iff the
-                    # inlier fraction clears the required threshold
-                    "success": bool(
-                        res["count"] >= 0
-                        and res["inlier_percent"] >= ropts["required_percent_inliers"]
-                    ),
-                }
-                metrics["pairs"].append(rec)
-                if not quiet:
-                    print(f"  pair ({i},{j}): {res['n_matches']} matches, "
-                          f"{res['inlier_percent']:.2f} inliers")
-                if res["n_matches"] < 10 or len(res["idx_j"]) < 8:
-                    continue
-                edges[(i, j)] = {
-                    "R": res["camera"][:, :3],
-                    "t": res["camera"][:, 3],
-                    "idx_i": res["idx_i"],
-                    "idx_j": res["idx_j"],
-                }
-                pair_matches[(i, j)] = (res["idx_i"], res["idx_j"])
+                    if not quiet:
+                        print(f"  pair ({i},{j}): {res['n_matches']} matches, "
+                              f"{res['inlier_percent']:.2f} inliers")
+                    if res["n_matches"] < 10 or len(res["idx_j"]) < 8:
+                        continue
+                    edges[(i, j)] = {
+                        "R": res["camera"][:, :3],
+                        "t": res["camera"][:, 3],
+                        "idx_i": res["idx_i"],
+                        "idx_j": res["idx_j"],
+                    }
+                    pair_matches[(i, j)] = (res["idx_i"], res["idx_j"])
         else:
             for (i, j) in pair_list:
-                rec, edge = _match_pair_loop(host_rows(), pts_cal, i, j, generator, ropts,
-                                             min_ratio, quiet, dev)
+                with annotate("pairs.loop"):
+                    rec, edge = _match_pair_loop(host_rows(), pts_cal, i, j, generator, ropts,
+                                                 min_ratio, quiet, dev)
                 metrics["pairs"].append(rec)
                 if edge is not None:
                     edges[(i, j)] = edge
@@ -356,8 +371,9 @@ def run_sfm_arrays(grays, K, outdir=None, pairs="sequential", min_ratio=1.75,
     metrics["pairs_seconds"] = pairs_elapsed
     metrics["pairs_per_second"] = len(pair_list) / pairs_elapsed if pairs_elapsed else None
 
-    with Timer("sfm-graph", quiet) as t_graph:
+    with Timer("sfm-tracks", quiet, "tracks") as t_tracks:
         tracks = build_tracks(pair_matches, V)
+    with Timer("sfm-graph", quiet, "graph") as t_graph:
         init_used = init
         if init == "pnp":
             from spectavi_tpu_torch.sfm import incremental_poses
@@ -375,7 +391,8 @@ def run_sfm_arrays(grays, K, outdir=None, pairs="sequential", min_ratio=1.75,
                 init_used = "chain-fallback"
         else:
             cams0 = chain_poses(edges, V, pts_cal, device=dev)
-        metrics["init_used"] = init_used
+    metrics["init_used"] = init_used
+    with Timer("sfm-triangulate", quiet, "triangulate") as t_tri:
         ci, pi, uv = tracks_to_observations(tracks, pts_cal)
         f64 = dict(dtype=torch.float64, device=dev)
         c0 = torch.as_tensor(cams0, **f64)
@@ -401,11 +418,11 @@ def run_sfm_arrays(grays, K, outdir=None, pairs="sequential", min_ratio=1.75,
                     print(f"  resuming BA from checkpoint {checkpoint}")
                 cams0, X0 = c_ck, p_ck
 
-    metrics["graph_seconds"] = t_graph.elapsed
+    metrics["graph_seconds"] = t_tracks.elapsed + t_graph.elapsed + t_tri.elapsed
     metrics["n_tracks"] = int(tracks.shape[0])
     metrics["n_observations"] = int(len(ci))
 
-    with Timer("sfm-ba", quiet) as t_ba:
+    with Timer("sfm-ba", quiet, "ba") as t_ba:
         if on_card:
             from spectavi_tpu_torch.sfm.bundle_adjust import bundle_adjust_device
 
@@ -435,10 +452,11 @@ def run_sfm_arrays(grays, K, outdir=None, pairs="sequential", min_ratio=1.75,
     if outdir is not None:
         from spectavi_tpu_torch.pipeline.io import write_metrics
 
-        os.makedirs(outdir, exist_ok=True)
-        write_ply(os.path.join(outdir, "sparse_cloud.ply"), pts_ba)
-        np.savetxt(os.path.join(outdir, "poses.txt"), cams_ba)
-        write_metrics(os.path.join(outdir, "metrics.json"), metrics)
+        with annotate("write"):
+            os.makedirs(outdir, exist_ok=True)
+            write_ply(os.path.join(outdir, "sparse_cloud.ply"), pts_ba)
+            np.savetxt(os.path.join(outdir, "poses.txt"), cams_ba)
+            write_metrics(os.path.join(outdir, "metrics.json"), metrics)
     return {
         "cams": cams_ba,
         "points": pts_ba,

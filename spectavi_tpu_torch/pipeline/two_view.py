@@ -23,7 +23,6 @@ radial lens model).
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
@@ -31,6 +30,7 @@ import torch
 from spectavi_tpu_torch import mvg, resolve_device
 from spectavi_tpu_torch.features import normalize_to_ubyte_and_multiple_16_dim, sift_filter_batch
 from spectavi_tpu_torch.pipeline.io import Timer, imread, imsave, write_ply
+from spectavi_tpu_torch.utils.profiling import annotate, spanned, step
 
 
 def homogeneous(x):
@@ -59,8 +59,7 @@ def step1_sift_detect(image_paths, quiet=False, device="cuda", images=None):
     """SIFT rows ``(n, 132)`` of both images (``images``: decoded
     float32 grayscale arrays, read from ``image_paths`` when None)."""
     ims = images if images is not None else _read_grays(image_paths)
-    with Timer("step1-computation", quiet):
-        return sift_filter_batch(ims, device=device)
+    return sift_filter_batch(ims, device=device)
 
 
 def step2_match_keypoints(siftkps, matching_method="auto", min_ratio=1.75, quiet=False,
@@ -73,20 +72,22 @@ def step2_match_keypoints(siftkps, matching_method="auto", min_ratio=1.75, quiet
     matching_method = resolve_matching_method(matching_method, device)
     # the full 132-col rows are quantized and matched, as the reference
     # does: the de-meaned x, y, sigma, angle act as a weak spatial prior
-    _x = normalize_to_ubyte_and_multiple_16_dim(x)
-    _y = normalize_to_ubyte_and_multiple_16_dim(y)
-    with Timer("step2-computation", quiet):
+    with annotate("quantize"):
+        _x = normalize_to_ubyte_and_multiple_16_dim(x)
+        _y = normalize_to_ubyte_and_multiple_16_dim(y)
+    with annotate("match.nn"):
         if matching_method == "cascading-hash":
             nn_idx, nn_dist = nn_cascading_hash(_x, _y, device=device)
         else:
             nn = nn_bruteforcel1k2 if matching_method == "bruteforce" else nn_l2k2
             nn_idx, nn_dist = nn((_x + 128).astype("uint8"), (_y + 128).astype("uint8"),
                                  device=device)
-    ratio = nn_dist[:, 1] / np.maximum(nn_dist[:, 0].astype("float64"), 1e-12)
-    # nn_l2k2 returns squared L2 distances, so its threshold is squared too
-    pass_idx = ratio >= (min_ratio**2 if matching_method == "l2-mxu" else min_ratio)
-    idx0 = nn_idx[:, 0].astype(np.int64)
-    return x[idx0[pass_idx]], y[pass_idx]
+    with annotate("ratio"):
+        ratio = nn_dist[:, 1] / np.maximum(nn_dist[:, 0].astype("float64"), 1e-12)
+        # nn_l2k2 returns squared L2 distances, so its threshold is squared too
+        pass_idx = ratio >= (min_ratio**2 if matching_method == "l2-mxu" else min_ratio)
+        idx0 = nn_idx[:, 0].astype(np.int64)
+        return x[idx0[pass_idx]], y[pass_idx]
 
 
 def step12_fused_device(image_paths, min_ratio=1.75, quiet=False, device="cuda", images=None):
@@ -101,9 +102,9 @@ def step12_fused_device(image_paths, min_ratio=1.75, quiet=False, device="cuda",
 
     dev = resolve_device(device)
     ims = images if images is not None else _read_grays(image_paths)
-    with Timer("step1-computation", quiet):
+    with annotate("sift"):
         outs = sift_filter_batch_device(ims, device=dev)
-    with Timer("step2-computation", quiet):
+    with annotate("quantize"):
         rows = [
             torch.cat(
                 [torch.as_tensor(o["meta"], device=dev), o["desc"].to(torch.float32)], dim=1
@@ -112,12 +113,14 @@ def step12_fused_device(image_paths, min_ratio=1.75, quiet=False, device="cuda",
         ]
         _x = normalize_to_ubyte_device(rows[0])
         _y = normalize_to_ubyte_device(rows[1])
+    with annotate("match"):
         nn_idx, nn_dist = (t.cpu().numpy() for t in l2_topk2(_x, _y))
-    ratio = nn_dist[:, 1] / np.maximum(nn_dist[:, 0].astype("float64"), 1e-12)
-    pass_idx = ratio >= min_ratio**2
-    idx0 = nn_idx[:, 0].astype(np.int64)
-    xd = outs[0]["meta"][idx0[pass_idx]]
-    yd = outs[1]["meta"][pass_idx]
+    with annotate("ratio"):
+        ratio = nn_dist[:, 1] / np.maximum(nn_dist[:, 0].astype("float64"), 1e-12)
+        pass_idx = ratio >= min_ratio**2
+        idx0 = nn_idx[:, 0].astype(np.int64)
+        xd = outs[0]["meta"][idx0[pass_idx]]
+        yd = outs[1]["meta"][pass_idx]
     return [o["meta"] for o in outs], (xd, yd)
 
 
@@ -139,10 +142,7 @@ def step3_estimate_essential(xd, yd, K, ransac_quality="ultra", options=None, ge
     }
     if options:
         ransac_options.update(options)
-    with Timer("step3-computation", quiet):
-        ransac = mvg.ransac_fitter(
-            x0, x1, options=ransac_options, generator=generator, device=device
-        )
+    ransac = mvg.ransac_fitter(x0, x1, options=ransac_options, generator=generator, device=device)
     return ransac, x0, x1, xd, yd
 
 
@@ -159,8 +159,7 @@ def step4_triangulate(step3_out, image_paths=None, outdir=None, quiet=False, ba=
     idx = ransac["inlier_idx"]
     P1 = ransac["camera"]
     P0 = np.hstack((np.eye(3), np.zeros((3, 1))))
-    with Timer("step4-computation", quiet):
-        RX = mvg.dlt_triangulate(P0, P1, x0[idx], x1[idx], device=dev)
+    RX = mvg.dlt_triangulate(P0, P1, x0[idx], x1[idx], device=dev)
     RX = RX / RX[..., -1:].reshape(-1, 1)
     if ba and len(idx) >= 10:
         from spectavi_tpu_torch.sfm import bundle_adjust, rodrigues, rotation_to_rvec
@@ -172,7 +171,7 @@ def step4_triangulate(step3_out, image_paths=None, outdir=None, quiet=False, ba=
         ci = np.concatenate([np.zeros(M, np.int32), np.ones(M, np.int32)])
         pi = np.concatenate([np.arange(M, dtype=np.int32)] * 2)
         uv = np.concatenate([x0[idx, :2] / x0[idx, 2:], x1[idx, :2] / x1[idx, 2:]])
-        with Timer("step4-ba", quiet):
+        with Timer("step4-ba", quiet, "ba"):
             out = bundle_adjust(
                 cams0, RX[:, :3], ci, pi, uv, fixed_cameras=(0,), max_iters=10,
                 estimate_distortion=distortion, device=dev,
@@ -201,7 +200,8 @@ def step4_triangulate(step3_out, image_paths=None, outdir=None, quiet=False, ba=
         if rgb.ndim == 1:
             rgb = np.stack([rgb] * 3, axis=1)
     if outdir is not None:
-        write_ply(os.path.join(outdir, "sparse_inliers.ply"), RX, rgb=rgb)
+        with annotate("write"):
+            write_ply(os.path.join(outdir, "sparse_inliers.ply"), RX, rgb=rgb)
     return RX, ransac
 
 
@@ -222,31 +222,32 @@ def step5_rectify(ransac, K, image_paths, outdir=None, sampling_factor=1.0, quie
     if images is None:
         images = (imread(image_paths[0], dtype="uint8"), imread(image_paths[1], dtype="uint8"))
     im0, im1 = images
-    with Timer("step5-computation", quiet):
-        if dev.type == "cuda":
-            if im0.dtype != np.uint8 or im0.shape != im1.shape:
-                im0, im1 = _max_normalized(im0), _max_normalized(im1)
-            r0u, r1u, ri0, ri1 = mvg.rectify_pair_quantized(
-                P0, P1, im0, im1, sampling_factor=sampling_factor, device=dev
-            )
-            r0, r1 = r0u, r1u
-        else:
-            r0, r1, ri0, ri1 = mvg.image_pair_rectification(
-                P0, P1, _max_normalized(im0), _max_normalized(im1),
-                sampling_factor=sampling_factor, device=dev,
-            )
-            r0u = np.clip(r0 * 255, 0, 255).astype("uint8")
-            r1u = np.clip(r1 * 255, 0, 255).astype("uint8")
+    if dev.type == "cuda":
+        if im0.dtype != np.uint8 or im0.shape != im1.shape:
+            im0, im1 = _max_normalized(im0), _max_normalized(im1)
+        r0u, r1u, ri0, ri1 = mvg.rectify_pair_quantized(
+            P0, P1, im0, im1, sampling_factor=sampling_factor, device=dev
+        )
+        r0, r1 = r0u, r1u
+    else:
+        r0, r1, ri0, ri1 = mvg.image_pair_rectification(
+            P0, P1, _max_normalized(im0), _max_normalized(im1),
+            sampling_factor=sampling_factor, device=dev,
+        )
+        r0u = np.clip(r0 * 255, 0, 255).astype("uint8")
+        r1u = np.clip(r1 * 255, 0, 255).astype("uint8")
     if outdir is not None:
-        for r, p in ((r0u, image_paths[0]), (r1u, image_paths[1])):
-            arr = r[..., 0] if (r.ndim == 3 and r.shape[-1] == 1) else r
-            imsave(os.path.join(outdir, "rect-" + os.path.basename(p)), arr)
-        for ri, p in ((ri0, image_paths[0]), (ri1, image_paths[1])):
-            stem = os.path.basename(p).split(".")[0]
-            ri.tofile(os.path.join(outdir, "rect-idx-" + stem) + ".bin")
+        with annotate("write"):
+            for r, p in ((r0u, image_paths[0]), (r1u, image_paths[1])):
+                arr = r[..., 0] if (r.ndim == 3 and r.shape[-1] == 1) else r
+                imsave(os.path.join(outdir, "rect-" + os.path.basename(p)), arr)
+            for ri, p in ((ri0, image_paths[0]), (ri1, image_paths[1])):
+                stem = os.path.basename(p).split(".")[0]
+                ri.tofile(os.path.join(outdir, "rect-idx-" + stem) + ".bin")
     return r0, r1, ri0, ri1
 
 
+@spanned("two_view")
 def run_two_view_arrays(grays, colors, K, image_names=("im0.png", "im1.png"), outdir=None,
                         matching_method="auto", min_ratio=1.75, ransac_quality="ultra",
                         rsf=1.0, cache=False, generator=None, quiet=False,
@@ -281,19 +282,20 @@ def run_two_view_arrays(grays, colors, K, image_names=("im0.png", "im1.png"), ou
         fused = matching_method == "l2-mxu" and dev.type == "cuda"
         metrics["fused_frontend"] = fused
         if fused:
-            t0 = time.perf_counter()
-            kps, step2_out = step12_fused_device(
-                image_names, min_ratio, quiet, device=dev, images=grays
-            )
-            metrics["step1_seconds"] = time.perf_counter() - t0
+            with Timer("step1-computation", quiet, "frontend") as t:
+                kps, step2_out = step12_fused_device(
+                    image_names, min_ratio, quiet, device=dev, images=grays
+                )
+            metrics["step1_seconds"] = t.elapsed
             metrics["step2_seconds"] = 0.0  # fused into step 1
         else:
-            t0 = time.perf_counter()
-            kps = step1_sift_detect(image_names, quiet, device=dev, images=grays)
-            metrics["step1_seconds"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            step2_out = step2_match_keypoints(kps, matching_method, min_ratio, quiet, device=dev)
-            metrics["step2_seconds"] = time.perf_counter() - t0
+            with Timer("step1-computation", quiet, "sift") as t:
+                kps = step1_sift_detect(image_names, quiet, device=dev, images=grays)
+            metrics["step1_seconds"] = t.elapsed
+            with Timer("step2-computation", quiet, "match") as t:
+                step2_out = step2_match_keypoints(kps, matching_method, min_ratio, quiet,
+                                                  device=dev)
+            metrics["step2_seconds"] = t.elapsed
         metrics["keypoints"] = [int(kps[0].shape[0]), int(kps[1].shape[0])]
         if not quiet:
             print("sift 1 #: ", kps[0].shape[0])
@@ -308,12 +310,12 @@ def run_two_view_arrays(grays, colors, K, image_names=("im0.png", "im1.png"), ou
             save_match_plot(grays[0], grays[1], step2_out[0], step2_out[1],
                             os.path.join(outdir, "step2-matches.png"))
 
-    t0 = time.perf_counter()
-    step3_out = step3_estimate_essential(
-        step2_out[0], step2_out[1], K, ransac_quality, options=ransac_options,
-        generator=generator, quiet=quiet, device=dev,
-    )
-    metrics["step3_seconds"] = time.perf_counter() - t0
+    with Timer("step3-computation", quiet, "ransac") as t:
+        step3_out = step3_estimate_essential(
+            step2_out[0], step2_out[1], K, ransac_quality, options=ransac_options,
+            generator=generator, quiet=quiet, device=dev,
+        )
+    metrics["step3_seconds"] = t.elapsed
     ransac = step3_out[0]
     metrics["n_matches"] = int(step2_out[0].shape[0])
     metrics["consensus"] = float(ransac["inlier_percent"])
@@ -326,21 +328,22 @@ def run_two_view_arrays(grays, colors, K, image_names=("im0.png", "im1.png"), ou
         print(" Fundamental Matrix Singular Values: ", s)
         print(" Singular Values ratio score: ", np.abs(s[0] - s[1]) / np.abs(s[0] + s[1]))
     metrics["decode_seconds"] = float(decode_seconds)
-    t0 = time.perf_counter()
-    RX, ransac = step4_triangulate(step3_out, None, outdir, quiet, ba=ba, distortion=distortion,
-                                   images=colors, device=dev)
-    metrics["step4_seconds"] = time.perf_counter() - t0
+    with Timer("step4-computation", quiet, "triangulate") as t:
+        RX, ransac = step4_triangulate(step3_out, None, outdir, quiet, ba=ba,
+                                       distortion=distortion, images=colors, device=dev)
+    metrics["step4_seconds"] = t.elapsed
     metrics["n_points"] = int(RX.shape[0])
-    t0 = time.perf_counter()
-    rect = step5_rectify(
-        ransac, K, list(image_names), outdir, rsf, quiet, images=colors, device=dev
-    )
-    metrics["step5_seconds"] = time.perf_counter() - t0
+    with Timer("step5-computation", quiet, "rectify") as t:
+        rect = step5_rectify(
+            ransac, K, list(image_names), outdir, rsf, quiet, images=colors, device=dev
+        )
+    metrics["step5_seconds"] = t.elapsed
     metrics["total_seconds"] = sum(v for k, v in metrics.items() if k.endswith("_seconds"))
     if outdir is not None:
         from spectavi_tpu_torch.pipeline.io import write_metrics
 
-        write_metrics(os.path.join(outdir, "metrics.json"), metrics)
+        with annotate("write"):
+            write_metrics(os.path.join(outdir, "metrics.json"), metrics)
     return {
         "matches": step2_out,
         "ransac": ransac,
@@ -361,11 +364,12 @@ def run_two_view(image_paths, K_path, outdir="ex01_out", matching_method="auto",
     ``step2-matches.png`` with ``plots``) into ``outdir``.  ``generator``: a
     ``torch.Generator`` on ``device`` for the RANSAC samples."""
     resolve_device(device)
-    K = np.loadtxt(K_path)
-    grays = _read_grays(image_paths)
-    t0 = time.perf_counter()
-    colors = (imread(image_paths[0], dtype="uint8"), imread(image_paths[1], dtype="uint8"))
-    decode_seconds = time.perf_counter() - t0
+    with annotate("decode"):
+        K = np.loadtxt(K_path)
+        grays = _read_grays(image_paths)
+        with step("decode.colors") as t:
+            colors = (imread(image_paths[0], dtype="uint8"), imread(image_paths[1], dtype="uint8"))
+    decode_seconds = t.elapsed
     return run_two_view_arrays(
         grays, colors, K, image_names=image_paths, outdir=outdir,
         matching_method=matching_method, min_ratio=min_ratio,

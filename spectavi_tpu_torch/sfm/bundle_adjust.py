@@ -35,6 +35,7 @@ from torch.func import jacfwd, vmap
 
 from spectavi_tpu_torch import resolve_device
 from spectavi_tpu_torch.mvg.core import inv3x3
+from spectavi_tpu_torch.utils.profiling import annotate
 
 
 def _skew(v):
@@ -548,17 +549,20 @@ def bundle_adjust_device(cams, pts, cam_idx, pt_idx, uv, weights=None, fixed_cam
     if loss not in ("linear", "huber"):
         raise ValueError(f"unknown loss {loss!r} (use 'linear' or 'huber')")
     dev = resolve_device(device)
-    cams, pts, inc, uv, w = _problem(cams, pts, cam_idx, pt_idx, uv, weights, dev)
-    fixed = _fixed_mask(cams.shape[0], fixed_cameras, dev)
-    robust = loss == "huber"
-    if robust and huber_delta is None:
-        huber_delta = _mad_scale(_residual_norms(cams, pts, inc, uv, _zero_k(cams)), w)
-    delta = torch.tensor(huber_delta if robust else 1.0, dtype=torch.float64, device=dev)
-    new_cams, new_pts, cost0, cost = ba_device_loop(
-        cams, pts, inc, None, uv, w, delta, lam0, fixed, iters=int(max_iters),
-        cg_iters=cg_iters, robust=robust,
-    )
-    return new_cams.cpu().numpy(), new_pts.cpu().numpy(), [float(cost0), float(cost)]
+    with annotate("ba.setup"):
+        cams, pts, inc, uv, w = _problem(cams, pts, cam_idx, pt_idx, uv, weights, dev)
+        fixed = _fixed_mask(cams.shape[0], fixed_cameras, dev)
+        robust = loss == "huber"
+        if robust and huber_delta is None:
+            huber_delta = _mad_scale(_residual_norms(cams, pts, inc, uv, _zero_k(cams)), w)
+        delta = torch.tensor(huber_delta if robust else 1.0, dtype=torch.float64, device=dev)
+    with annotate("ba.iterate"):
+        new_cams, new_pts, cost0, cost = ba_device_loop(
+            cams, pts, inc, None, uv, w, delta, lam0, fixed, iters=int(max_iters),
+            cg_iters=cg_iters, robust=robust,
+        )
+    with annotate("ba.download"):
+        return new_cams.cpu().numpy(), new_pts.cpu().numpy(), [float(cost0), float(cost)]
 
 
 def bundle_adjust(cams, pts, cam_idx, pt_idx, uv, weights=None, fixed_cameras=(0,),

@@ -31,6 +31,7 @@ from spectavi_tpu_torch.sfm.bundle_adjust import (
     rotation_to_rvec,
 )
 from spectavi_tpu_torch.sfm.pose_graph import triangulate_nview
+from spectavi_tpu_torch.utils.profiling import annotate, spanned
 
 
 def _diag(vals, like):
@@ -356,12 +357,14 @@ def incremental_poses(edges, n_views, keypoints, tracks, ref_view=0, reproj_thre
     obs_mask_t = torch.as_tensor(obs_mask, device=dev)
 
     def triangulate_registered():
-        Xw, good = _structure_from_registered(
-            torch.as_tensor(cams, **f64), torch.as_tensor(registered, device=dev),
-            uv_all_t, obs_mask_t, float(reproj_thresh),
-        )
-        return Xw.cpu().numpy(), good.cpu().numpy()
+        with annotate("graph.triangulate"):
+            Xw, good = _structure_from_registered(
+                torch.as_tensor(cams, **f64), torch.as_tensor(registered, device=dev),
+                uv_all_t, obs_mask_t, float(reproj_thresh),
+            )
+            return Xw.cpu().numpy(), good.cpu().numpy()
 
+    @spanned("graph.local_ba")
     def local_ba():
         """Consolidate the registered sub-problem: a fixed-scale Huber
         LM run with accept/reject on the device."""
@@ -434,10 +437,11 @@ def incremental_poses(edges, n_views, keypoints, tracks, ref_view=0, reproj_thre
 
         views = [v for _, v in ready]
         sels = [obs_mask[:, v] & good for v in views]
-        results = pnp_ransac_batch(
-            [(Xw[s], uv_all[s, v]) for s, v in zip(sels, views)],
-            generator=generator, reproj_thresh=reproj_thresh, device=dev,
-        )
+        with annotate("graph.pnp"):
+            results = pnp_ransac_batch(
+                [(Xw[s], uv_all[s, v]) for s, v in zip(sels, views)],
+                generator=generator, reproj_thresh=reproj_thresh, device=dev,
+            )
         for v, res in zip(views, results):
             cams[v, :3] = res["rvec"]
             cams[v, 3:] = res["tvec"]

@@ -1,3 +1,11 @@
-"""``spectavi_tpu_torch.utils`` — profiling and the native host-ops
+"""``spectavi_tpu_torch.utils`` — the tracer and the native host-ops
 library."""
-from spectavi_tpu_torch.utils.profiling import annotate, trace  # noqa: F401
+from spectavi_tpu_torch.utils.profiling import (  # noqa: F401
+    annotate,
+    count,
+    disable,
+    enable,
+    step,
+    take,
+    trace,
+)
