@@ -35,7 +35,7 @@ from torch.func import jacfwd, vmap
 
 from spectavi_tpu_torch import resolve_device
 from spectavi_tpu_torch.mvg.core import inv3x3
-from spectavi_tpu_torch.utils.profiling import annotate
+from spectavi_tpu_torch.utils.profiling import annotate, count
 
 
 def _skew(v):
@@ -476,6 +476,54 @@ def _lm_iteration(cams, pts, k, inc, uv, w, delta, lam, fixed_cam_mask, cg_iters
     return new_cams, new_pts, new_k, new_cost
 
 
+def _lm_update(state, k, inc, uv, w, delta, fixed_cam_mask, cg_iters, robust):
+    """One LM iteration of :func:`ba_device_loop`, in place.  ``state =
+    (cams, pts, cost, lam)``: the accepted solution, its objective and
+    the damping.  The candidate is accepted where its objective is lower
+    (``torch.where``, nothing read back to the host) and each tensor of
+    ``state`` takes its new value by ``copy_``, so every iteration reads
+    and writes the same addresses and one captured CUDA graph of a call
+    can stand for all of them."""
+    cams, pts, cost, lam = state
+    new_cams, new_pts, _, new_cost = _lm_iteration(
+        cams, pts, k, inc, uv, w, delta, lam, fixed_cam_mask, cg_iters, robust, False
+    )
+    accept = new_cost < cost
+    cams.copy_(torch.where(accept, new_cams, cams))
+    pts.copy_(torch.where(accept, new_pts, pts))
+    cost.copy_(torch.where(accept, new_cost, cost))
+    lam.copy_(torch.where(accept, torch.clamp(lam * 0.3, min=1e-12), lam * 10.0))
+
+
+# device -> the side stream every capture on it uses, as torch.cuda.graph
+# keeps one capture stream: cuBLAS keeps a workspace for each stream it has
+# run on (32 MiB on an H100), so a new stream a call would pin one more
+_capture_streams = {}
+
+
+def _replay(body, iters, device):
+    """Run ``body`` (device work only, no read back to the host) ``iters``
+    times as replays of one CUDA graph of it.  The graph is captured on a
+    side stream, as CUDA requires, and lives only for this call; its
+    kernels and their order are those of one eager call of ``body``.
+    Its private memory pool goes with it, and the caching allocator
+    keeps such pools reserved until it runs short of memory (or
+    ``torch.cuda.empty_cache()``)."""
+    if device not in _capture_streams:
+        _capture_streams[device] = torch.cuda.Stream(device)
+    side = _capture_streams[device]
+    stream = torch.cuda.current_stream(device)
+    side.wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        body()
+        graph.capture_end()
+    stream.wait_stream(side)
+    for _ in range(iters):
+        graph.replay()
+
+
 def ba_device_loop(cams, pts, cam_idx, pt_idx, uv, w, delta, lam0, fixed_cam_mask, iters,
                    cg_iters=100, robust=True):
     """A fixed-round LM bundle adjustment with accept/reject and damping
@@ -483,22 +531,30 @@ def ba_device_loop(cams, pts, cam_idx, pt_idx, uv, w, delta, lam0, fixed_cam_mas
     value is read back to the host inside the loop.  Takes tensors on
     one device; a FIXED robust scale ``delta``; no distortion.  Returns
     ``(cams, pts, cost0, cost)`` under the (robust) objective.
-    ``cam_idx`` may be an :class:`Incidence`."""
+    ``cam_idx`` may be an :class:`Incidence`.
+
+    On a CUDA device with two or more iterations, one iteration
+    (:func:`_lm_update`) is captured as a CUDA graph and replayed
+    ``iters`` times: the same kernels in the same order as the eager
+    loop, so the same bytes, without a host launch per operation (some
+    4,500 an iteration, which held the host far longer than the device)."""
     inc = _incidence(cam_idx, pt_idx, cams, pts)
     k = _zero_k(cams)
     lam = torch.as_tensor(lam0, dtype=cams.dtype, device=cams.device)
     cost0 = _objective(cams, pts, k, inc, uv, w, delta, robust)
-    cost = cost0
-    for _ in range(int(iters)):
-        new_cams, new_pts, _, new_cost = _lm_iteration(
-            cams, pts, k, inc, uv, w, delta, lam, fixed_cam_mask, cg_iters, robust, False
-        )
-        accept = new_cost < cost
-        cams = torch.where(accept, new_cams, cams)
-        pts = torch.where(accept, new_pts, pts)
-        cost = torch.where(accept, new_cost, cost)
-        lam = torch.where(accept, torch.clamp(lam * 0.3, min=1e-12), lam * 10.0)
-    return cams, pts, cost0, cost
+    state = (cams.clone(), pts.clone(), cost0.clone(), lam.clone())
+    iters = int(iters)
+
+    def body():
+        _lm_update(state, k, inc, uv, w, delta, fixed_cam_mask, cg_iters, robust)
+
+    if cams.is_cuda and iters >= 2:
+        _replay(body, iters, cams.device)
+        count("ba_graph_iters", iters)
+    else:
+        for _ in range(iters):
+            body()
+    return state[0], state[1], cost0, state[2]
 
 
 def _problem(cams, pts, cam_idx, pt_idx, uv, weights, dev):

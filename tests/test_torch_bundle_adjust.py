@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+from spectavi_tpu_torch.utils import profiling
+
 torch.set_num_threads(2)
 
 jba = importlib.import_module("spectavi_tpu.sfm.bundle_adjust")
@@ -177,6 +179,55 @@ def test_device_loop_and_bundle_adjust_device():
         _close(a, b, 1e-8)
     with pytest.raises(ValueError):
         tba.bundle_adjust_device(cams, pts, ci, pi, uv, loss="cauchy", device="cpu")
+
+
+def _functional_loop(cams, pts, inc, uv, w, delta, lam0, fixed, iters, robust):
+    """The device loop as a chain of new tensors, each iteration's state
+    rebound (no ``copy_``): the bytes the in-place body must keep."""
+    k = tba._zero_k(cams)
+    lam = torch.as_tensor(lam0, dtype=cams.dtype)
+    cost0 = cost = tba._objective(cams, pts, k, inc, uv, w, delta, robust)
+    for _ in range(iters):
+        new_cams, new_pts, _, new_cost = tba._lm_iteration(
+            cams, pts, k, inc, uv, w, delta, lam, fixed, 100, robust, False)
+        accept = new_cost < cost
+        cams = torch.where(accept, new_cams, cams)
+        pts = torch.where(accept, new_pts, pts)
+        cost = torch.where(accept, new_cost, cost)
+        lam = torch.where(accept, torch.clamp(lam * 0.3, min=1e-12), lam * 10.0)
+    return cams, pts, cost0, cost
+
+
+@pytest.mark.parametrize("iters", [0, 1, 5])
+@pytest.mark.parametrize("robust", [True, False])
+def test_device_loop_is_its_in_place_body(robust, iters):
+    """On the CPU the loop runs its in-place body eagerly: stepped by
+    hand it gives the same bytes, as does the loop of rebound tensors;
+    the inputs stay as they were, and no iteration counts as a graph
+    replay."""
+    cams, pts, ci, pi, uv = _scene()
+    w, fixed, inc = _args(cams, pts, ci, pi, uv)
+    cams_t, pts_t, uv_t, w_t, delta, fixed_t = (T(a) for a in (cams, pts, uv, w, 0.01, fixed))
+    was = profiling.enable()
+    profiling.take()
+    try:
+        got = tba.ba_device_loop(cams_t, pts_t, inc, None, uv_t, w_t, delta, LAM, fixed_t,
+                                 iters=iters, robust=robust)
+        counters = profiling.take()["counters"]
+    finally:
+        profiling.enable(was)
+    assert counters.get("ba_graph_iters", 0) == 0
+    assert torch.equal(cams_t, T(cams)) and torch.equal(pts_t, T(pts))
+
+    k = tba._zero_k(cams_t)
+    cost0 = tba._objective(cams_t, pts_t, k, inc, uv_t, w_t, delta, robust)
+    state = (cams_t.clone(), pts_t.clone(), cost0.clone(), torch.tensor(LAM, dtype=torch.float64))
+    for _ in range(iters):
+        tba._lm_update(state, k, inc, uv_t, w_t, delta, fixed_t, 100, robust)
+    by_hand = (state[0], state[1], cost0, state[2])
+    rebound = _functional_loop(cams_t, pts_t, inc, uv_t, w_t, delta, LAM, fixed_t, iters, robust)
+    for a, b, c in zip(got, by_hand, rebound):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_cg_zero_rhs_and_early_stop(rng):
