@@ -97,8 +97,21 @@ def gather_pairs(mesh, outs):
     return tuple(all_gather(t, mesh.groups[PAIRS]).flatten(0, 1) for t in outs)
 
 
+# a sized compaction bucket grows in steps of this many rows
+BUCKET_MULTIPLE = 256
+
+
+def bucket_rows(survivors, floor, rows):
+    """Rows of a sized compaction bucket: the largest survivor count of
+    a batch's pairs, ``survivors``, rounded up to a multiple of
+    :data:`BUCKET_MULTIPLE`, never below ``min(floor, rows)`` and never
+    above the ``rows`` queries, so every survivor competes."""
+    need = -(-int(survivors) // BUCKET_MULTIPLE) * BUCKET_MULTIPLE
+    return min(int(rows), max(min(int(floor), int(rows)), need))
+
+
 def make_two_view_step(mesh=None, trials=512, reproj_allowed=1e-3, svr_allowed=3e-2,
-                       min_ratio=1.75, masked=False, compact_to=4096):
+                       min_ratio=1.75, masked=False, compact_to=4096, *, sized=False):
     """Build the two-view step for a batch of pairs.
 
     The step takes ``desc0 (B, X, D)`` uint8 descriptors of image 0
@@ -124,7 +137,13 @@ def make_two_view_step(mesh=None, trials=512, reproj_allowed=1e-3, svr_allowed=3
     ``min(compact_to, Y)``-row bucket by a stable descending sort of the
     ratio margin (ties to the lower query index, as ``lax.top_k``), so
     only the strongest ``compact_to`` survivors compete in RANSAC and
-    can appear in the inlier mask.
+    can appear in the inlier mask.  ``sized=True`` makes ``compact_to``
+    the bucket's floor instead: the bucket has
+    :func:`bucket_rows` of the batch's (on a mesh, the rank's pairs')
+    largest survivor count, read to the host once a call, so every
+    survivor competes; where no pair has more than ``compact_to``
+    survivors the bucket, the sample tables drawn over it and every
+    output are the fixed step's.
 
     ``mesh``: a :class:`spectavi_tpu_torch.parallel.mesh.Mesh` makes
     this the ``(pairs, blocks)`` step; None runs it on one device with
@@ -172,7 +191,10 @@ def make_two_view_step(mesh=None, trials=512, reproj_allowed=1e-3, svr_allowed=3
             qi = torch.arange(Y, device=dev)
             ratio_ok = ((d2 >= (min_ratio**2) * d1) & (idx[..., 0] < nx_t[:, None])
                         & (qi[None] < ny_t[:, None]))
-            C = min(compact_to, Y)
+            if sized:
+                C = bucket_rows(int(ratio_ok.sum(1).max()), compact_to, Y)
+            else:
+                C = min(compact_to, Y)
             margin = torch.where(ratio_ok, d2 / d1, torch.full_like(d1, -1.0))
             topq = torch.sort(margin, dim=1, descending=True, stable=True).indices[:, :C]
             cmask = torch.gather(ratio_ok, 1, topq)

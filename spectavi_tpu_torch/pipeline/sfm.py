@@ -32,7 +32,7 @@ from spectavi_tpu_torch.sfm import (
     tracks_to_observations,
     triangulate_nview,
 )
-from spectavi_tpu_torch.utils.profiling import annotate, spanned, step
+from spectavi_tpu_torch.utils.profiling import annotate, count, spanned, step
 
 
 def match_pair(kp_a, kp_b, min_ratio=1.75, device="cuda"):
@@ -98,8 +98,11 @@ def _match_pairs_batched(descs, pts_cal, pair_list, generator, ropts, min_ratio,
     pair's row 0 (a padding hit can only fail the ratio test), query
     rows with zeros masked by ``ny``; both to a multiple of ``pad_to``.
     Coordinates are float32, as the JAX package's batched path has them.
+    The compaction bucket is sized from the batch
+    (``make_two_view_step(..., sized=True)``, ``compact_to`` its floor),
+    so every ratio-test survivor competes in RANSAC.
     Returns the per-pair result dicts."""
-    from spectavi_tpu_torch.parallel.two_view import make_two_view_step
+    from spectavi_tpu_torch.parallel.two_view import bucket_rows, make_two_view_step
 
     dev = resolve_device(device)
     coords = [pc.astype(np.float32) for pc in pts_cal]
@@ -145,6 +148,7 @@ def _match_pairs_batched(descs, pts_cal, pair_list, generator, ropts, min_ratio,
         min_ratio=min_ratio,
         masked=True,
         compact_to=compact_to,
+        sized=True,
     )
     out = pair_step(d0, d1, p0t, p1t, generator, nx, ny)
     with annotate("pairs.download"):
@@ -152,11 +156,15 @@ def _match_pairs_batched(descs, pts_cal, pair_list, generator, ropts, min_ratio,
 
     results = []
     with annotate("pairs.unpack"):
+        n_matches = [int(ratio_ok[b, : ny[b]].sum()) for b in range(B)]
+        C = bucket_rows(max(n_matches), compact_to, Y)
+        count("pair_survivors", sum(n_matches))
+        count("pair_survivors_cut", sum(max(n - C, 0) for n in n_matches))
         for b, (i, j) in enumerate(pair_list):
-            n_match = int(ratio_ok[b, : ny[b]].sum())
+            n_match = n_matches[b]
             # survivors beyond the compaction bucket never competed, so the
             # consensus denominator is the competitor count
-            n_competed = min(n_match, compact_to)
+            n_competed = min(n_match, C)
             inl_j = np.where(inl_mask[b, : ny[b]])[0].astype(np.int64)
             inl_i = midx0[b, inl_j].astype(np.int64)
             results.append({

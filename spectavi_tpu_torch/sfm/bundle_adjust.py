@@ -606,6 +606,7 @@ def bundle_adjust_device(cams, pts, cam_idx, pt_idx, uv, weights=None, fixed_cam
         raise ValueError(f"unknown loss {loss!r} (use 'linear' or 'huber')")
     dev = resolve_device(device)
     with annotate("ba.setup"):
+        count("ba_observations", len(cam_idx))
         cams, pts, inc, uv, w = _problem(cams, pts, cam_idx, pt_idx, uv, weights, dev)
         fixed = _fixed_mask(cams.shape[0], fixed_cameras, dev)
         robust = loss == "huber"
