@@ -40,6 +40,18 @@ Phases, one JSON line each:
                 the first neighbours that pass the ratio test; k-medians
                 and ``nn_bruteforce`` (p = 0.5, and ``mu > 0``) on a
                 4000-row subset; each with its milliseconds;
+* ``check_K4``  the Sampson counting kernel against its plain version at
+                the shapes the main path gives it, captured from warm
+                runs: the 55-pair step of 11 views of 2048x3072 (every
+                survivor, 8192 trials a pair), the 45-pair step of 10
+                views of 480x640 and a two-view RANSAC block of the
+                rendered pair; to the bit against its own arithmetic as
+                separate elementwise operations, and against the plain
+                version each differing count explained by rows within
+                their float32 rounding bound of the threshold (and how
+                many a float64 band of 1e-4 relative explains); CUDA-event ms, bound
+                ms, plain ms, the share of counts that differ and the
+                launches of each warm run (after ``cpu_parity``);
 * ``cpu_parity`` the same pipeline on the small pair on the card and on
                 the CPU (plain versions), both given the same RANSAC
                 sample tables drawn on the host: keypoint and match
@@ -136,10 +148,11 @@ Phases, one JSON line each:
 Then the card's name and power limit as ``nvidia-smi`` prints them, and
 last the contract line ``{"ok": true, "device": {...}}``.  Any failure
 raises and exits non-zero without that line.  Usage: ``python3
-chip_smoke.py [--ptxas] [--profile DIR] [--checks-only]`` (``--ptxas``
+chip_smoke.py [--ptxas] [--profile DIR] [--checks-only | --k4]`` (``--ptxas``
 prints the compiler's register and shared-memory report; ``--profile``
 also writes the profiled run's Chrome trace into DIR; ``--checks-only``
-stops after the kernel checks, without the contract line).  Nothing of
+stops after the kernel checks, ``--k4`` runs ``check_K4`` alone after the
+build and the render, both without the contract line).  Nothing of
 JAX is imported.
 """
 
@@ -452,6 +465,19 @@ def k3_bound_ms(L, H_, W_, kx, ky, sigma, R, magnif=3.0):
     return float(max(t_b, t_o) * 1e3), ("operations" if t_o >= t_b else "bytes")
 
 
+# float32 operations of one (hypothesis, row) Sampson test: 12 for E x0h,
+# 8 for the two components of E^T x1h the denominator uses, 4 for
+# x1h . E x0h, 7 for the denominator, clamp, square, quotient, compare
+K4_TEST_FLOPS = 35
+
+
+def k4_bound_ms(tests):
+    """Operations: ``tests`` (hypothesis, real row) pairs of valid
+    hypotheses; the bytes (each problem's rows and hypotheses read once,
+    a count written) are a few MB, far below."""
+    return K4_TEST_FLOPS * float(tests) / PEAK_F32_FLOPS * 1e3, "operations"
+
+
 # --- phases ---------------------------------------------------------
 
 
@@ -460,6 +486,7 @@ DEVICE_FUNCTIONS = {
     "l2nn_top2": ("make_tiles", "row_norms", "top2_wgmma_kernel", "top2_dp4a_kernel"),
     "sift_orient_hist": ("orient_kernel",),
     "sift_desc": ("desc_kernel",),
+    "sampson_count": ("sampson_count_kernel",),
 }
 
 
@@ -680,6 +707,208 @@ def check_k3(torch, sd, args, small_args):
          sets={n: {"rows": int(a[2].shape[0]), "H": a[0].shape[1], "W": a[0].shape[2],
                    "err": errs[n][0], "lsb": errs[n][1]} for n, a in sets.items()}, **res)
     return res
+
+
+def capture_sampson(ransac, calls):
+    """Wrap ``ransac._sampson_counts`` so that each call appends its
+    ``(F, valid, x0, x1, point_mask, reproj_allowed, svr_allowed)`` to
+    ``calls``; returns a function that undoes it."""
+    fn = ransac._sampson_counts
+
+    def wrapped(F, valid, x0, x1, point_mask, reproj_allowed, svr_allowed, *a, **k):
+        calls.append((F, valid, x0, x1, point_mask, reproj_allowed, svr_allowed))
+        return fn(F, valid, x0, x1, point_mask, reproj_allowed, svr_allowed, *a, **k)
+
+    ransac._sampson_counts = wrapped
+    return lambda: setattr(ransac, "_sampson_counts", fn)
+
+
+def k4_ordered_counts(torch, E, valid, x0, x1, pm, thr2, step):
+    """K4's arithmetic as one elementwise PyTorch operation per rounding,
+    in the kernel's order, ``step`` trials at a time: on the card, the
+    counts the kernel must give to the bit."""
+    x, y = x0[..., None, None, :, 0], x0[..., None, None, :, 1]
+    u, v = x1[..., None, None, :, 0], x1[..., None, None, :, 1]
+    thr = torch.tensor(thr2, dtype=torch.float32, device=E.device)
+    out = []
+    for s in range(0, E.shape[-4], step):
+        m = E[..., s : s + step, :, :, :]
+        e = [m[..., i // 3, i % 3, None] for i in range(9)]
+        a0 = e[0] * x + e[1] * y + e[2]
+        a1 = e[3] * x + e[4] * y + e[5]
+        a2 = e[6] * x + e[7] * y + e[8]
+        b0 = e[0] * u + e[3] * v + e[6]
+        b1 = e[1] * u + e[4] * v + e[7]
+        xex = u * a0 + v * a1 + a2
+        den = torch.clamp(a0 * a0 + a1 * a1 + b0 * b0 + b1 * b1, min=1e-30)
+        inl = ((xex * xex) / den <= thr) & pm[..., None, None, :]
+        c = inl.sum(-1).to(torch.int32)
+        out.append(torch.where(valid[..., s : s + step, :], c, torch.full_like(c, -1)))
+    return torch.cat(out, dim=-2)
+
+
+def k4_threshold_rows(torch, E, x0, x1, pm, thr2, bands):
+    """For hypotheses ``E (K, 3, 3)`` over their problems' rows ``x0, x1
+    (K, N, 2)``, ``pm (K, N)``: per band ``b`` of ``bands``, the count of
+    real rows whose float64 Sampson distance squared ``d`` lies within
+    ``b`` relative of ``thr2``; under the key ``"float32"``, the count of
+    rows within the float32 rounding bound of their own evaluation,
+    ``|d - thr2| <= eps max(d, thr2)`` with ``eps = 2 g6 S / |xEx| +
+    2 g3 sum_k |c_k| S_k / den + g4 + 2 u``: ``S`` the sum of the absolute
+    products of ``x1h . E x0h``, ``S_k`` those of each denominator
+    component ``c_k``, ``g_k = k u / (1 - k u)``, ``u = 2^-24``.  A row
+    further from the threshold is counted alike by any float32 route."""
+    f8 = torch.float64
+    E, x0, x1 = E.to(f8), x0.to(f8), x1.to(f8)
+    one = torch.ones_like(x0[..., :1])
+    x0h, x1h = torch.cat([x0, one], -1), torch.cat([x1, one], -1)
+    Ex0 = torch.einsum("kij,knj->kni", E, x0h)
+    Etx1 = torch.einsum("kji,knj->kni", E, x1h)
+    xEx = (x1h * Ex0).sum(-1)
+    c = torch.stack([Ex0[..., 0], Ex0[..., 1], Etx1[..., 0], Etx1[..., 1]], -1)
+    den = (c * c).sum(-1)
+    d = xEx * xEx / den.clamp(min=1e-30)
+    aE = E.abs()
+    aEx0 = torch.einsum("kij,knj->kni", aE, x0h.abs())
+    aEtx1 = torch.einsum("kji,knj->kni", aE, x1h.abs())
+    S = (x1h.abs() * aEx0).sum(-1)
+    Sk = torch.stack([aEx0[..., 0], aEx0[..., 1], aEtx1[..., 0], aEtx1[..., 1]], -1)
+    u = 2.0**-24
+    g = lambda k: k * u / (1 - k * u)
+    eps = (2 * g(6) * S / xEx.abs().clamp(min=1e-300)
+           + 2 * g(3) * (c.abs() * Sk).sum(-1) / den.clamp(min=1e-300) + g(4) + 2 * u)
+    off = (d - thr2).abs()
+    out = {b: ((off <= b * thr2) & pm).sum(-1) for b in bands}
+    out["float32"] = ((off <= eps * d.clamp(min=thr2)) & pm).sum(-1)
+    return out
+
+
+K4_BANDS = (1e-4, 1e-3, 1e-2)
+
+
+def k4_compare(torch, sampson, ransac, call, name, reps):
+    """K4 on one captured ``_sampson_counts`` call, as that function runs
+    it on a card (``_essential_gate`` over every trial, then one launch),
+    against (a) the kernel's arithmetic as separate elementwise
+    operations, to the bit, and (b) the plain version, chunked as the
+    CPU route chunks it: each differing count explained by real rows
+    within the float32 rounding bound of the threshold
+    (``k4_threshold_rows``).  How many a fixed float64 band of 1e-4,
+    1e-3 or 1e-2 relative explains is reported beside: cancellation in
+    ``x1h . E x0h`` moves rows near the threshold by more than 1e-4
+    between any two float32 routes (the BLAS one against this order)."""
+    F, valid, x0, x1, pm, reproj, svr = call
+    thr2 = (0.5 * reproj) ** 2
+    lead, T, N = tuple(F.shape[:-4]), F.shape[-4], x0.shape[-2]
+    P = int(math.prod(lead))
+    E, _ = ransac._essential_gate(F, valid, svr)
+    before = sampson.launches
+    got = sampson.count_cuda(E, valid, x0, x1, pm, thr2)
+    again = sampson.count_cuda(E, valid, x0, x1, pm, thr2)
+    torch.cuda.synchronize()
+    launches = sampson.launches - before
+    step = ransac._plain_chunk(F, N)
+    t0 = time.perf_counter()
+    plain = torch.cat([sampson.count_plain(E[..., s : s + step, :, :, :],
+                                           valid[..., s : s + step, :], x0, x1, pm, thr2)
+                       for s in range(0, T, step)], dim=-2)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ordered = k4_ordered_counts(torch, E, valid, x0, x1, pm, thr2, step)
+    ms = cuda_ms(lambda: sampson.count_cuda(E, valid, x0, x1, pm, thr2), reps)
+    real = pm.reshape(P, N).sum(-1)
+    tests = int((valid.reshape(P, -1).sum(-1) * real).sum())
+    bound, by = k4_bound_ms(tests)
+
+    gf, pf = got.reshape(P, -1), plain.reshape(P, -1)
+    pi, hi = torch.nonzero(gf != pf, as_tuple=True)
+    delta = (gf[pi, hi] - pf[pi, hi]).abs()
+    explained = {b: 0 for b in K4_BANDS + ("float32",)}
+    Ef = E.reshape(P, -1, 3, 3)
+    x0f, x1f, pmf = x0.reshape(P, N, 2), x1.reshape(P, N, 2), pm.reshape(P, N)
+    for s in range(0, int(pi.shape[0]), 256):
+        p_, h_ = pi[s : s + 256], hi[s : s + 256]
+        rows = k4_threshold_rows(torch, Ef[p_, h_], x0f[p_], x1f[p_], pmf[p_], thr2, K4_BANDS)
+        for b, n in rows.items():
+            explained[b] += int((delta[s : s + 256] <= n).sum())
+    n_diff = int(pi.shape[0])
+    res = {"name": "sampson_count", "shape": {"P": P, "T": T, "H": 3 * T, "N": N},
+           "hypotheses": P * 3 * T, "valid": int(valid.sum()), "tests": tests,
+           "exact_vs_ordered": bool(torch.equal(got, ordered)),
+           "deterministic": bool(torch.equal(got, again)), "launches": launches,
+           "differ_vs_plain": n_diff, "differ_share": n_diff / max(P * 3 * T, 1),
+           "max_count_diff": int(delta.max()) if n_diff else 0,
+           "explained": {str(b): n for b, n in explained.items()},
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+    res["ok"] = (res["exact_vs_ordered"] and res["deterministic"] and launches == 2
+                 and explained["float32"] == n_diff)
+    emit("check_K4_case", case=name, **res)
+    return res
+
+
+def phase_check_k4(torch, np, pair):
+    """K4 against its plain version at the three shapes the main path
+    gives it, each captured from a warm run: the ``fountain-exh11`` pair
+    step (11 views of 2048x3072, 55 pairs, 8192 trials, every survivor),
+    ``tum-exh10``'s (10 views of 480x640, 45 pairs) and a castle-size
+    two-view RANSAC block (``pair``: grays, colors, K; ex01's defaults),
+    with each warm run's K4 launches."""
+    from spectavi_tpu_torch.mvg import ransac
+    from spectavi_tpu_torch.ops import sampson
+    from spectavi_tpu_torch.pipeline.sfm import run_sfm_arrays
+    from spectavi_tpu_torch.pipeline.two_view import run_two_view_arrays
+
+    def sfm(grays, K):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        return run_sfm_arrays(grays, K, pairs="exhaustive", generator=gen, quiet=True,
+                              device="cuda")
+
+    def two_view(grays, K):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        return run_two_view_arrays(grays, pair[1], K, outdir=None, quiet=True, generator=gen,
+                                   device="cuda")
+
+    cases = {}
+    for name, render_args, run in (
+            ("castle_block", None, two_view),
+            ("tum_exh10", (SFM_VIEWS, SFM_H, SFM_W, "cuda", SFM_TEX), sfm),
+            ("fountain_exh11", (11, H, W, "cuda", TEX), sfm)):
+        t0 = time.perf_counter()
+        grays, K = (pair[0], pair[2]) if render_args is None else render_views(*render_args)[::2]
+        run(grays, K)  # cold
+        calls = []
+        undo = capture_sampson(ransac, calls)
+        before = sampson.launches
+        try:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run(grays, K)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t1
+        finally:
+            undo()
+        job_launches = sampson.launches - before
+        call = max(calls, key=lambda c: c[0].numel())
+        res = k4_compare(torch, sampson, ransac, call, name, 3 if name == "fountain_exh11" else 10)
+        res.update(warm_seconds=warm_s, job_launches=job_launches, calls=len(calls),
+                   seconds=time.perf_counter() - t0)
+        cases[name] = res
+        del grays, calls, call
+        torch.cuda.empty_cache()
+    bad = [n for n, r in cases.items() if not r["ok"]]
+    emit("check_K4", cases={n: {k: r[k] for k in ("shape", "ms", "bound_ms", "plain_ms",
+                                                  "differ_share", "launches", "job_launches",
+                                                  "warm_seconds", "ok")}
+                            for n, r in cases.items()})
+    if bad:
+        raise AssertionError(f"K4 sampson_count disagrees with its plain version on {bad}")
+    main = cases["fountain_exh11"]
+    return {"name": "sampson_count", "max_abs_err": float(main["max_count_diff"]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "shape": main["shape"],
+            "cases": cases}
 
 
 def host_ms(torch, fn):
@@ -2889,7 +3118,7 @@ def dist_worker(argv):
     rank = int(rank)
     backend, world, shapes = DIST_JOBS[name]
     sys.path.insert(0, ROOT)
-    from spectavi_tpu_torch.ops import l2nn
+    from spectavi_tpu_torch.ops import l2nn, sampson
     from spectavi_tpu_torch.ops import sift_desc as sd
     from spectavi_tpu_torch.ops import sift_orient as so
     from spectavi_tpu_torch.parallel import (BLOCKS, PAIRS, gather_pairs, initialize, local_shard,
@@ -2948,7 +3177,8 @@ def dist_worker(argv):
         return cams, pts, costs
 
     # the distributed path, every count at 0
-    wrappers = {"l2nn_top2": l2nn, "sift_orient_hist": so, "sift_desc": sd}
+    wrappers = {"l2nn_top2": l2nn, "sift_orient_hist": so, "sift_desc": sd,
+                "sampson_count": sampson}
     for mod in wrappers.values():
         mod.launches = 0
     sync()
@@ -3085,7 +3315,7 @@ def main(argv):
     sys.path.insert(0, ROOT)
     import spectavi_tpu_torch  # noqa: F401  (precision pin)
     from spectavi_tpu_torch.features import sift
-    from spectavi_tpu_torch.ops import _build, l2nn
+    from spectavi_tpu_torch.ops import _build, l2nn, sampson
     from spectavi_tpu_torch.ops import sift_desc as sd
     from spectavi_tpu_torch.ops import sift_orient as so
     from spectavi_tpu_torch.pipeline.two_view import run_two_view_arrays
@@ -3108,6 +3338,10 @@ def main(argv):
     small = render_pair(SMALL_H, SMALL_W, "cuda", SMALL_TEX)
     torch.cuda.synchronize()
     emit("render", seconds=time.perf_counter() - t0, shape=[H, W])
+    if "--k4" in argv:
+        phase_check_k4(torch, np, (grays, colors, K))
+        emit("done", seconds=time.perf_counter() - t_start, k4_only=True)
+        return 0
 
     res_k1 = check_k1(torch, l2nn)
     octs = octave_inputs(torch, sift, grays[0], (0, SMALL_OCTAVE))
@@ -3134,7 +3368,8 @@ def main(argv):
     t0 = time.perf_counter()
     cold = run("cuda", grays, colors, K)
     cold_s = time.perf_counter() - t0
-    wrappers = {"l2nn_top2": l2nn, "sift_orient_hist": so, "sift_desc": sd}
+    wrappers = {"l2nn_top2": l2nn, "sift_orient_hist": so, "sift_desc": sd,
+                "sampson_count": sampson}
     for mod_ in wrappers.values():
         mod_.launches = 0
     torch.cuda.synchronize()
@@ -3203,6 +3438,10 @@ def main(argv):
 
     # the multi-view phases, each with its own clock
     phase_s = {"before_sfm": time.perf_counter() - t_start}
+    # K4 at the pair steps' and a castle block's shapes, from warm runs
+    t0 = time.perf_counter()
+    res_k4 = phase_check_k4(torch, np, (grays, colors, K))
+    phase_s["check_K4"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     warm_sfm, sfm_K, launches_sfm, run_ms_sfm, step_capture = phase_sfm(torch, np, wrappers,
                                                                          profile_dir)
@@ -3254,6 +3493,8 @@ def main(argv):
          "spectavi_tpu/ops/sift_orient.py:119"),
         ("sift_desc", res_k3, "spectavi_tpu_torch/csrc/sift_desc.cu",
          "spectavi_tpu/ops/sift_desc.py:195"),
+        # replaces none: the JAX package's Sampson scoring is fused XLA
+        ("sampson_count", res_k4, "spectavi_tpu_torch/csrc/sampson_count.cu", None),
     ):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,

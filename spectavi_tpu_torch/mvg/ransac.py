@@ -32,6 +32,7 @@ from spectavi_tpu_torch.mvg.core import (
 )
 from spectavi_tpu_torch.mvg.sevenpoint import seven_point
 from spectavi_tpu_torch.mvg.triangulate import triangulate_fast_full
+from spectavi_tpu_torch.ops.sampson import sampson_count
 from spectavi_tpu_torch.utils.profiling import annotate, count
 
 DEFAULT_OPTIONS = {
@@ -65,38 +66,42 @@ def _diag110(like):
     return torch.diag(torch.tensor([1.0, 1.0, 0.0], dtype=like.dtype, device=like.device))
 
 
+def _plain_chunk(F, n, chunk=1024):
+    """Trials the plain route scores at a time: at most ``chunk``, fewer
+    when the leading batch of ``F (..., T, 3, 3, 3)`` is wide, so that a
+    chunk's ``(..., t, 3, n, 3)`` intermediates stay near 2^27 values."""
+    lead = int(np.prod(F.shape[:-4]))
+    return max(1, min(chunk, (1 << 27) // max(1, lead * 9 * n)))
+
+
+def _essential_gate(F, valid, svr_allowed):
+    """Each root of ``F (..., 3, 3)`` projected to an essential matrix
+    (singular values 1, 1, 0), and the reference's singular-value-ratio
+    + validity gate."""
+    U, S, Vt = svd3x3(F)
+    ratio = torch.abs(S[..., 0] - S[..., 1]) / (torch.abs(S[..., 0] + S[..., 1]) / 2.0)
+    return U @ _diag110(F) @ Vt, (ratio <= svr_allowed) & valid
+
+
 def _sampson_counts(F, valid, x0, x1, point_mask, reproj_allowed, svr_allowed, chunk=1024):
     """Sampson inlier counts for ranking hypotheses.
 
     ``F (..., T, 3, 3, 3)``, ``valid (..., T, 3)`` over correspondences
     ``x0, x1 (..., N, 2)`` -> ``(counts (..., T, 3), gate (..., T, 3))``:
     counts of every valid root (-1 where the 7-point solve failed) and
-    the reference's singular-value-ratio + validity gate.  Trials are
-    scored at most ``chunk`` at a time, fewer when the leading batch is
-    wide, to bound memory; each trial's count is independent of the
-    chunking."""
+    the reference's singular-value-ratio + validity gate.  On a card the
+    kernel of ``ops/sampson.py`` counts every trial in one launch, which
+    keeps no intermediates; on the CPU the plain version takes at most
+    ``chunk`` trials at a time (:func:`_plain_chunk`) to bound memory.
+    Each trial's count is independent of the chunking."""
     thr2 = (0.5 * reproj_allowed) ** 2
-    x0h = torch.cat([x0, torch.ones_like(x0[..., :1])], dim=-1)
-    x1h = torch.cat([x1, torch.ones_like(x1[..., :1])], dim=-1)
-    D = _diag110(F)
-    pm = point_mask[..., None, None, :]
-    lead = int(np.prod(F.shape[:-4]))
-    chunk = max(1, min(chunk, (1 << 27) // max(1, lead * 9 * x0.shape[-2])))
+    T = F.shape[-4]
+    step = T if F.is_cuda else _plain_chunk(F, x0.shape[-2], chunk)
     counts, gates = [], []
-    for s in range(0, F.shape[-4], chunk):
-        Ft, validt = F[..., s : s + chunk, :, :, :], valid[..., s : s + chunk, :]
-        U, S, Vt = svd3x3(Ft)
-        ratio = torch.abs(S[..., 0] - S[..., 1]) / (torch.abs(S[..., 0] + S[..., 1]) / 2.0)
-        gate = (ratio <= svr_allowed) & validt
-        E = U @ D @ Vt
-        Ex0 = torch.einsum("...trij,...nj->...trni", E, x0h)
-        Etx1 = torch.einsum("...trji,...nj->...trni", E, x1h)
-        xEx = torch.einsum("...ni,...trni->...trn", x1h, Ex0)
-        denom = Ex0[..., 0] ** 2 + Ex0[..., 1] ** 2 + Etx1[..., 0] ** 2 + Etx1[..., 1] ** 2
-        sampson2 = (xEx * xEx) / torch.clamp(denom, min=1e-30)
-        inlier = (sampson2 <= thr2) & pm
-        c = inlier.sum(-1).to(torch.int32)
-        counts.append(torch.where(validt, c, torch.full_like(c, -1)))
+    for s in range(0, T, step):
+        Ft, validt = F[..., s : s + step, :, :, :], valid[..., s : s + step, :]
+        E, gate = _essential_gate(Ft, validt, svr_allowed)
+        counts.append(sampson_count(E, validt, x0, x1, point_mask, thr2))
         gates.append(gate)
     return torch.cat(counts, dim=-2), torch.cat(gates, dim=-2)
 

@@ -25,10 +25,10 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("l2nn_top2", "sift_orient", "sift_desc")
+KERNELS = ("l2nn_top2", "sift_orient", "sift_desc", "sampson_count")
 # -fmad=false: no contraction of a*b+c into one rounding, so every
-# float operation of the sift kernels rounds as its plain-PyTorch
-# counterpart (one elementwise op per rounding) does
+# float operation of the sift and Sampson kernels rounds as its
+# plain-PyTorch counterpart (one elementwise op per rounding) does
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

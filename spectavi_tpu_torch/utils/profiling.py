@@ -7,8 +7,8 @@ tracer:
   (two ``perf_counter_ns`` calls); the pipelines' ``*_seconds`` and
   :class:`spectavi_tpu_torch.pipeline.io.Timer` read it;
 * :func:`annotate` — a named span; off, one shared no-op context;
-* :func:`count` — add to a named counter (``ransac_trials``); off, it
-  returns at once;
+* :func:`count` — add to a named counter (``ransac_trials``,
+  ``sampson_scored``); off, it returns at once;
 * :func:`enable` / :func:`disable` / :func:`take` — turn recording on
   and off, and hand back what was recorded;
 * :func:`trace` — a ``torch.profiler`` trace of the enclosed block
@@ -60,6 +60,9 @@ HOST_SYNC = "host_sync"
 _SYNC_REPORT = "called a synchronizing CUDA operation"
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__))) + os.sep
 _TORCH = os.path.dirname(os.path.abspath(torch.__file__)) + os.sep
+# the counter of hypotheses whose Sampson counts the CUDA kernel gave
+# (``ops/sampson.py``), from host shapes: a CPU run counts none
+SAMPSON_SCORED = "sampson_scored"
 
 _on = False
 _nvtx = False
