@@ -7,9 +7,10 @@ Phases, one JSON line each:
 * ``build``     compile every source under ``spectavi_tpu_torch/csrc/``
                 (one ``nvcc`` per kernel and ``g++`` for the JPEG codec,
                 all started together);
-* ``render``    a 2048x3072 two-view pair rendered on the card (a
-                heightfield with seeded multi-scale noise texture, known
-                K and cameras), plus a 240x320 pair for the CPU check;
+* ``render``    a 2048x3072 two-view pair rendered on the card by the
+                benchmark's renderer (``sfmbench/scene.py``: a heightfield
+                with seeded multi-scale noise texture, known K and
+                cameras), plus a 240x320 pair for the CPU check;
 * ``check_K1``  the L2 top-2 kernel against its plain version at
                 X = Y = 28000, D = 144, on a case full of ties, and on
                 shapes that reach every branch of the wrapper and both
@@ -136,8 +137,9 @@ Phases, one JSON line each:
                 one NCCL rank and four gloo ranks, each with its own
                 launch counts (``dist_worker``);
 * ``kernels``   one line for every kernel: launches in the warm two-view
-                run, ms, plain ms, bound ms and what bounds it, ``run_ms``,
-                its summed device time over the profiled warm run,
+                run, ms, plain ms, bound ms and what bounds it (K1-K3
+                by ``sfmbench/bounds.py``, as the benchmark bounds them),
+                ``run_ms``, its summed device time over the profiled warm run,
                 ``launches_sfm`` / ``run_ms_sfm`` of the 10-view run,
                 ``launches_surface`` of the unmasked step,
                 ``launches_entry_points``, ``launches_jpeg``,
@@ -167,12 +169,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-# published H100 SXM peaks (dense): int8 tensor ops, float32 CUDA-core
-# flops, device-memory bytes per second
-PEAK_INT8_OPS = 1979e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 
 # image and texture sizes: ~9 px per texel gives castle-like keypoint
 # counts (a few 10k per image) at 2048x3072
@@ -222,123 +218,28 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-# --- scene: a torch copy of benchmarks/bench_multiview_synthetic.py's
-# look_at/render, with a seeded multi-scale noise texture -------------
-
-
-def look_at(C, target, up=(0.0, -1.0, 0.0)):
-    import numpy as np
-
-    z = target - C
-    z = z / np.linalg.norm(z)
-    x = np.cross(np.asarray(up), z)
-    x = x / np.linalg.norm(x)
-    y = np.cross(z, x)
-    R = np.stack([x, y, z])
-    return R, -R @ C
-
-
-def make_texture(gen, device, Ht, Wt, octaves=6):
-    """Multi-scale smoothed noise in [0, 1]: noise fields at halving
-    resolutions, each smoothed by two 5-point averages, upsampled
-    bilinearly and summed with equal weights."""
-    import torch
-    import torch.nn.functional as F
-
-    tex = torch.zeros((1, 1, Ht, Wt), dtype=torch.float64, device=device)
-    for o in range(octaves):
-        h, w = max(Ht >> o, 4), max(Wt >> o, 4)
-        n = torch.rand((1, 1, h, w), generator=gen, device=device, dtype=torch.float64)
-        for _ in range(2):
-            n = (n + n.roll(1, 2) + n.roll(-1, 2) + n.roll(1, 3) + n.roll(-1, 3)) / 5.0
-        tex += F.interpolate(n, size=(Ht, Wt), mode="bilinear", align_corners=True)
-    tex = tex[0, 0]
-    return (tex - tex.min()) / (tex.max() - tex.min())
-
-
-def make_scene(rng, gen, device, tex_shape):
-    import numpy as np
-    import torch
-
-    tex = make_texture(gen, device, *tex_shape)
-    Ht, Wt = tex.shape
-    aspect = Wt / Ht
-    centers = rng.uniform(-0.7, 0.7, size=(8, 2)) * [aspect, 1.0]
-    amps = rng.uniform(0.35, 0.7, size=8) * rng.choice([-1, 1], 8)
-    widths = rng.uniform(0.3, 0.7, size=8)
-
-    def height(x, y):
-        h = 0.15 * (x * x + y * y)
-        for (cx, cy), a, w in zip(centers, amps, widths):
-            h = h + a * torch.exp(-((x - cx) ** 2 + (y - cy) ** 2) / (2 * w * w))
-        return h
-
-    def texture_at(x, y):
-        u = torch.clamp((x / aspect * 0.5 + 0.5) * (Wt - 1), 0, Wt - 1.001)
-        v = torch.clamp((y * 0.5 + 0.5) * (Ht - 1), 0, Ht - 1.001)
-        u0, v0 = u.long(), v.long()
-        fu, fv = u - u0, v - v0
-        return (
-            tex[v0, u0] * (1 - fu) * (1 - fv)
-            + tex[v0, u0 + 1] * fu * (1 - fv)
-            + tex[v0 + 1, u0] * (1 - fu) * fv
-            + tex[v0 + 1, u0 + 1] * fu * fv
-        )
-
-    return height, texture_at
-
-
-def render(height, texture_at, K, R, t, h, w, device, depth=4.0, iters=8, ss=2):
-    """Per pixel, intersect the camera ray with the heightfield
-    z = depth - h(x, y) by fixed-point iteration, at ``ss``x
-    supersampling, then box-downsample."""
-    import numpy as np
-    import torch
-
-    Kss = np.array([[K[0, 0] * ss, 0, K[0, 2] * ss], [0, K[1, 1] * ss, K[1, 2] * ss], [0, 0, 1.0]])
-    h2, w2 = h * ss, w * ss
-    f64 = dict(dtype=torch.float64, device=device)
-    vs, us = torch.meshgrid(torch.arange(h2, **f64), torch.arange(w2, **f64), indexing="ij")
-    rays = torch.stack([us.reshape(-1), vs.reshape(-1), torch.ones(h2 * w2, **f64)])
-    d_world = torch.as_tensor(R.T @ np.linalg.inv(Kss), **f64) @ rays
-    C = -R.T @ t
-    lam = (depth - C[2]) / d_world[2]
-    for _ in range(iters):
-        x = C[0] + lam * d_world[0]
-        y = C[1] + lam * d_world[1]
-        lam = (depth - height(x, y) - C[2]) / d_world[2]
-    im = texture_at(C[0] + lam * d_world[0], C[1] + lam * d_world[1]).reshape(h2, w2)
-    return im.reshape(h, ss, w, ss).mean(dim=(1, 3))
-
-
-def arc_pose(i, n, target=(0.0, 0.0, 4.0), arc=(1.6, 0.25, 0.35)):
-    """View ``i`` of ``n`` on the multi-view benchmark's lateral arc
-    ``C = (1.6 s, 0.25 s, 0.35 |s|)``, ``s = i / (n - 1) - 0.5``, looking
-    at the surface centre: ``(R, t, C)``."""
-    import numpy as np
-
-    s = i / max(n - 1, 1) - 0.5
-    C = np.array([arc[0] * s, arc[1] * s, arc[2] * abs(s)])
-    R, t = look_at(C, np.asarray(target))
-    return R, t, C
+# --- scene: the benchmark's renderer (sfmbench/scene.py), imported
+# after the CUDA check as torch is, with this script's gray rule ------
 
 
 def render_views(n, h, w, device, tex_shape, seed=SEED):
     """``n`` views of the scene on the arc, as the pipeline would read
-    them from 8-bit files: ``(grays float32, colors uint8 numpy, K,
+    them from 8-bit gray files: ``(grays float32, colors uint8 numpy, K,
     [(R, t, C)])``."""
     import numpy as np
     import torch
 
+    from sfmbench import scene
+
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    height, texture_at = make_scene(rng, gen, device, tex_shape)
-    K = camera_K(np, h, w)
+    height, texture_at = scene.make_scene(rng, gen, device, tex_shape)
+    K = scene.camera_K(h, w)
     grays, colors, poses = [], [], []
     for i in range(n):
-        R, t, C = arc_pose(i, n)
-        u8 = (torch.clamp(render(height, texture_at, K, R, t, h, w, device), 0, 1)
+        R, t, C = scene.arc_pose(i, n)
+        u8 = (torch.clamp(scene.render(height, texture_at, K, R, t, h, w, device), 0, 1)
               * 255).to(torch.uint8)
         g = u8.to(torch.float32)
         grays.append((g / g.max()).cpu().numpy())
@@ -347,24 +248,13 @@ def render_views(n, h, w, device, tex_shape, seed=SEED):
     return grays, colors, K, poses
 
 
-def camera_K(np, h, w):
-    """The rendered views' intrinsics at ``h`` x ``w``."""
-    f = 1.1 * w
-    return np.array([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1.0]])
-
-
-def relative_pose(poses):
-    """``(R, t)`` of the second of two arc poses relative to the first."""
-    (R0, t0, _), (R1, t1, _) = poses[:2]
-    R01 = R1 @ R0.T
-    return R01, t1 - R01 @ t0
-
-
 def render_pair(h, w, device, tex_shape):
     """Two views on the arc: ``(grays, colors, K, (R1, t1) of view 1
     relative to view 0)``."""
+    from sfmbench import scene
+
     grays, colors, K, poses = render_views(2, h, w, device, tex_shape)
-    return grays, colors, K, relative_pose(poses)
+    return grays, colors, K, scene.relative_pose(poses)
 
 
 def tiny_views(device, nviews=3, h=120, w=160):
@@ -373,6 +263,8 @@ def tiny_views(device, nviews=3, h=120, w=160):
     in memory: ``(grays, K, camera centres)``."""
     import numpy as np
     import torch
+
+    from sfmbench import scene
 
     rng = np.random.default_rng(0xDEADBEEF)
     tex = rng.random((160, 220))
@@ -401,12 +293,11 @@ def tiny_views(device, nviews=3, h=120, w=160):
         return (tex_t[v0, u0] * (1 - fu) * (1 - fv) + tex_t[v0, u0 + 1] * fu * (1 - fv)
                 + tex_t[v0 + 1, u0] * (1 - fu) * fv + tex_t[v0 + 1, u0 + 1] * fu * fv)
 
-    f = 1.1 * w
-    K = np.array([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1.0]])
+    K = scene.camera_K(h, w)
     grays, centres = [], []
     for i in range(nviews):
-        R, t, C = arc_pose(i, nviews, arc=(1.4, 0.2, 0.3))
-        u8 = (torch.clamp(render(height, texture_at, K, R, t, h, w, device), 0, 1)
+        R, t, C = scene.arc_pose(i, nviews, arc=(1.4, 0.2, 0.3))
+        u8 = (torch.clamp(scene.render(height, texture_at, K, R, t, h, w, device), 0, 1)
               * 255).to(torch.uint8)
         g = u8.to(torch.float32)
         grays.append((g / g.max()).cpu().numpy())
@@ -414,56 +305,7 @@ def tiny_views(device, nviews=3, h=120, w=160):
     return grays, K, np.asarray(centres)
 
 
-# --- bounds ---------------------------------------------------------
-
-
-def k1_bound_ms(X, Y, D):
-    ops = 2.0 * X * Y * D
-    nbytes = (X + Y) * D + Y * 16
-    return max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3, (
-        "operations" if ops / PEAK_INT8_OPS >= nbytes / PEAK_BYTES else "bytes")
-
-
-def window_pixels(H_, W_, xs, ys, radii):
-    """In-octave pixel count of square windows of the given radii."""
-    import numpy as np
-
-    yi, xi = np.round(ys).astype(np.int64), np.round(xs).astype(np.int64)
-    ny = np.minimum(yi + radii, H_ - 1) - np.maximum(yi - radii, 0) + 1
-    nx = np.minimum(xi + radii, W_ - 1) - np.maximum(xi - radii, 0) + 1
-    return np.clip(ny, 0, None) * np.clip(nx, 0, None)
-
-
-def k2_bound_ms(L, H_, W_, kx, ky, sigma):
-    """Bytes: each row's pixels inside r^2 < Wr^2 + 0.6 (two float32
-    levels), capped at the levels' size, plus row metadata and the
-    histogram out.  Operations: ~16 float32 flops per counted pixel
-    (offsets, r^2, exp, weight, bin)."""
-    import numpy as np
-
-    Wr = np.maximum(np.floor(3.0 * 1.5 * sigma), 1.0)
-    px = np.pi * (Wr * Wr + 0.6)
-    nbytes = min(px.sum() * 8, L * H_ * W_ * 8) + len(kx) * (5 * 4 + 36 * 4)
-    flops = 16.0 * px.sum()
-    t_b, t_o = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
-    return float(max(t_b, t_o) * 1e3), ("operations" if t_o >= t_b else "bytes")
-
-
-def k3_bound_ms(L, H_, W_, kx, ky, sigma, R, magnif=3.0):
-    """Bytes: each row's pixels inside its box (two float32 levels),
-    capped at the levels' size, plus metadata and the uint8 row out.
-    Operations: per box pixel ~25 float32 flops of geometry and window
-    plus ~4 per each of the 8 bins its trilinear weight reaches."""
-    import numpy as np
-
-    Wr = magnif * sigma * 2.5 * math.sqrt(2.0) + 0.5
-    r = np.minimum(np.floor(Wr + 0.5).astype(np.int64), R)
-    px = window_pixels(H_, W_, kx, ky, r).astype(np.float64)
-    nbytes = min(px.sum() * 8, L * H_ * W_ * 8) + len(kx) * (6 * 4 + 128)
-    flops = (25.0 + 8 * 4.0) * px.sum()
-    t_b, t_o = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
-    return float(max(t_b, t_o) * 1e3), ("operations" if t_o >= t_b else "bytes")
-
+# --- bounds: K1-K3's are the benchmark's (sfmbench/bounds.py) -------
 
 # float32 operations of one (hypothesis, row) Sampson test: 12 for E x0h,
 # 8 for the two components of E^T x1h the denominator uses, 4 for
@@ -475,19 +317,36 @@ def k4_bound_ms(tests):
     """Operations: ``tests`` (hypothesis, real row) pairs of valid
     hypotheses; the bytes (each problem's rows and hypotheses read once,
     a count written) are a few MB, far below."""
+    from sfmbench.bounds import PEAK_F32_FLOPS
+
     return K4_TEST_FLOPS * float(tests) / PEAK_F32_FLOPS * 1e3, "operations"
 
 
 # --- phases ---------------------------------------------------------
 
+# this script's name of each wrapper, by the benchmark's kernel key
+WRAPPER_NAMES = {"K1": "l2nn_top2", "K2": "sift_orient_hist", "K3": "sift_desc"}
 
-# device functions of each wrapper's C entry point, as the profiler names them
-DEVICE_FUNCTIONS = {
-    "l2nn_top2": ("make_tiles", "row_norms", "top2_wgmma_kernel", "top2_dp4a_kernel"),
-    "sift_orient_hist": ("orient_kernel",),
-    "sift_desc": ("desc_kernel",),
-    "sampson_count": ("sampson_count_kernel",),
-}
+
+def device_functions():
+    """The device functions of each wrapper's C entry point, as the
+    profiler names them: K1-K3 as ``sfmbench.bounds.KERNELS`` lists
+    them, then K4's."""
+    from sfmbench.bounds import KERNELS
+
+    return {**{WRAPPER_NAMES[k]: fns for k, (_, _, fns) in KERNELS.items()},
+            "sampson_count": ("sampson_count_kernel",)}
+
+
+@contextlib.contextmanager
+def launch_counts(wrappers):
+    """Zero every wrapper's ``launches``; on leaving the block, the
+    yielded dict holds each wrapper's count, by name."""
+    for mod in wrappers.values():
+        mod.launches = 0
+    counts = {}
+    yield counts
+    counts.update({name: mod.launches for name, mod in wrappers.items()})
 
 
 def k1_cases(torch, gen):
@@ -535,6 +394,8 @@ def k1_main_inputs(torch):
 
 
 def check_k1(torch, l2nn):
+    from sfmbench.bounds import k1_bound_ms
+
     gen, x, y = k1_main_inputs(torch)
     (X, D), Y = x.shape, y.shape[0]
     cases = [("main", x, y)] + k1_cases(torch, gen)
@@ -613,6 +474,8 @@ def check_k2(torch, so, args, small_args):
     """``args``: the rows of octave -1 (timed); ``small_args``: those of
     a small octave.  Returns the result and octave -1's plain
     orientations for the descriptor check."""
+    from sfmbench.bounds import k2_bound_ms
+
     sets = {"octave_-1": args, "small_octave": small_args,
             "clipped": k2_clipped_rows(torch, so, args)}
     errs, plain = {}, {}
@@ -680,6 +543,8 @@ def clipped_rows(torch, args):
 def check_k3(torch, sd, args, small_args):
     """``args``: the rows of octave -1 (timed); ``small_args``: those of
     a small octave."""
+    from sfmbench.bounds import k3_bound_ms
+
     valid = args[7]
     clip_args = clipped_rows(torch, args)
     sets = {"octave_-1": args, "small_octave": small_args, "clipped": clip_args}
@@ -1040,7 +905,7 @@ def profile_run(torch, run_once, out_dir, warm_s, phase="profile", trace="two_vi
     ``trace`` in ``out_dir`` when that is given.  ``host_ops=False``
     records device activity only (a run of ~10^5 launches otherwise
     spends minutes in the profiler's host-side bookkeeping).  Returns
-    every wrapper's summed device time in ms (``DEVICE_FUNCTIONS``)."""
+    every wrapper's summed device time in ms (:func:`device_functions`)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] if host_ops else []
@@ -1063,7 +928,7 @@ def profile_run(torch, run_once, out_dir, warm_s, phase="profile", trace="two_vi
         prof.export_chrome_trace(os.path.join(out_dir, trace))
     run_ms = {
         name: sum(ms for key, ms, _ in rows if any(f in key for f in fns))
-        for name, fns in DEVICE_FUNCTIONS.items()
+        for name, fns in device_functions().items()
     }
     emit(phase, warm_wall_ms=warm_s * 1e3, device_busy_ms=busy_ms,
          busy_share=busy_ms / (warm_s * 1e3), n_kernels=sum(r[2] for r in rows),
@@ -1245,14 +1110,12 @@ def phase_sfm(torch, np, wrappers, profile_dir):
     pair_peaks, tables = [], []
     undo = track_peak(torch, sfm_mod, "_match_pairs_batched", pair_peaks)
     undo_tables = capture_step_tables(torch, two_view, tables)
-    for mod_ in wrappers.values():
-        mod_.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    warm = sfm_run(torch, grays, K, "cuda")
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    launches = {name: mod_.launches for name, mod_ in wrappers.items()}
+    with launch_counts(wrappers) as launches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = sfm_run(torch, grays, K, "cuda")
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
     undo()
     undo_tables()
     share = ate_share(np, warm["cams"], gt_C)
@@ -1502,10 +1365,8 @@ def phase_surface(torch, np, cap, wrappers):
     jax_args = (kw["trials"], kw["reproj_allowed"], kw["svr_allowed"], kw["min_ratio"])
     unmasked = make_two_view_step(None, *jax_args, False, kw["compact_to"])
     masked = make_two_view_step(None, *jax_args, True, kw["compact_to"])
-    for mod_ in wrappers.values():
-        mod_.launches = 0
-    out, step_ms = timed(lambda: unmasked(*d, seeded(torch, SEED + 3)))
-    launches = {name: mod_.launches for name, mod_ in wrappers.items()}
+    with launch_counts(wrappers) as launches:
+        out, step_ms = timed(lambda: unmasked(*d, seeded(torch, SEED + 3)))
     full, masked_ms = timed(lambda: masked(*d, seeded(torch, SEED + 3), np.full(B, X),
                                            np.full(B, Y)))
     counts = out[2].cpu().numpy()
@@ -1666,7 +1527,6 @@ def phase_entry_points(torch, np, pair, small, wrappers, smi):
     from spectavi_tpu_torch.features import sift
     from spectavi_tpu_torch.pipeline import ex01
     from spectavi_tpu_torch.pipeline import io as pio
-    from spectavi_tpu_torch.pipeline.png_timing import encode as png_encode
     from spectavi_tpu_torch.pipeline.sfm import run_sfm
     from spectavi_tpu_torch.pipeline.two_view import run_two_view, run_two_view_arrays
     from spectavi_tpu_torch.sfm import ate_rmse, camera_centers
@@ -1675,8 +1535,6 @@ def phase_entry_points(torch, np, pair, small, wrappers, smi):
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     ep_dir = tempfile.mkdtemp(prefix="entry_points-", dir=os.path.join(ROOT, "build"))
     d = lambda *p: os.path.join(ep_dir, *p)
-    for mod_ in wrappers.values():
-        mod_.launches = 0
     out, bad = {"card": smi}, []
 
     def gate(ok, name):
@@ -1690,198 +1548,203 @@ def phase_entry_points(torch, np, pair, small, wrappers, smi):
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0
 
-    # the codec at 2048x3072
-    paths = [d(f"im{i}.png") for i in (0, 1)]
-    kfile = d("K.txt")
-    np.savetxt(kfile, K)
-    _, enc_gray = synced(lambda: pio.imsave(paths[0], colors[0]))
-    pio.imsave(paths[1], colors[1])
-    rgb = np.stack([colors[0], colors[1], colors[0] // 2 + colors[1] // 2], axis=-1)
-    _, enc_rgb = synced(lambda: pio.imsave(d("rgb.png"), rgb))
-    with open(d("rgb_paeth.png"), "wb") as f:
-        f.write(png_encode(rgb, "paeth", 6))
-    pio._decode.cache_clear()
-    dec, dec_rgb = synced(lambda: pio.imread(d("rgb.png"), dtype="uint8"))
-    dec_p, dec_paeth = synced(lambda: pio.imread(d("rgb_paeth.png"), dtype="uint8"))
-    gate(np.array_equal(dec, rgb) and np.array_equal(dec_p, rgb) and dec_paeth < 2.0, "png_rgb")
-    gate(all(np.array_equal(pio.imread(p, dtype="uint8"), c) for p, c in zip(paths, colors)),
-         "png_gray")
-    out["png"] = {"shape": list(rgb.shape), "encode_gray_s": enc_gray, "encode_rgb_s": enc_rgb,
-                  "decode_rgb_s": dec_rgb, "decode_rgb_paeth_s": dec_paeth,
-                  "rgb_bytes": os.path.getsize(d("rgb.png")),
-                  "rgb_paeth_bytes": os.path.getsize(d("rgb_paeth.png"))}
+    with launch_counts(wrappers) as launches:
+        # the codec at 2048x3072
+        paths = [d(f"im{i}.png") for i in (0, 1)]
+        kfile = d("K.txt")
+        np.savetxt(kfile, K)
+        _, enc_gray = synced(lambda: pio.imsave(paths[0], colors[0]))
+        pio.imsave(paths[1], colors[1])
+        rgb = np.stack([colors[0], colors[1], colors[0] // 2 + colors[1] // 2], axis=-1)
+        _, enc_rgb = synced(lambda: pio.imsave(d("rgb.png"), rgb))
+        with open(d("rgb_paeth.png"), "wb") as f:
+            f.write(png_encode(np, rgb, 2, 8, [4], level=6))
+        pio._decode.cache_clear()
+        dec, dec_rgb = synced(lambda: pio.imread(d("rgb.png"), dtype="uint8"))
+        dec_p, dec_paeth = synced(lambda: pio.imread(d("rgb_paeth.png"), dtype="uint8"))
+        gate(np.array_equal(dec, rgb) and np.array_equal(dec_p, rgb) and dec_paeth < 2.0, "png_rgb")
+        gate(all(np.array_equal(pio.imread(p, dtype="uint8"), c) for p, c in zip(paths, colors)),
+             "png_gray")
+        out["png"] = {"shape": list(rgb.shape), "encode_gray_s": enc_gray, "encode_rgb_s": enc_rgb,
+                      "decode_rgb_s": dec_rgb, "decode_rgb_paeth_s": dec_paeth,
+                      "rgb_bytes": os.path.getsize(d("rgb.png")),
+                      "rgb_paeth_bytes": os.path.getsize(d("rgb_paeth.png"))}
 
-    # ex01 cold, as a user runs it
-    cli_s, _ = run_cli("spectavi_tpu_torch.pipeline.ex01",
-                       [*paths, kfile, "--outdir", d("ex01_cli"), "--seed", str(SEED)])
-    names = ("sparse_inliers.ply", "rect-im0.png", "rect-im1.png", "metrics.json")
-    gate(all(os.path.getsize(d("ex01_cli", n)) > 0 for n in names), "ex01_cli_outputs")
+        # ex01 cold, as a user runs it
+        cli_s, _ = run_cli("spectavi_tpu_torch.pipeline.ex01",
+                           [*paths, kfile, "--outdir", d("ex01_cli"), "--seed", str(SEED)])
+        names = ("sparse_inliers.ply", "rect-im0.png", "rect-im1.png", "metrics.json")
+        gate(all(os.path.getsize(d("ex01_cli", n)) > 0 for n in names), "ex01_cli_outputs")
 
-    def gen(device="cuda"):
-        g = torch.Generator(device=device)
-        g.manual_seed(SEED)
-        return g
+        def gen(device="cuda"):
+            g = torch.Generator(device=device)
+            g.manual_seed(SEED)
+            return g
 
-    # both without outputs, so that the difference is the two decodes
-    pio._decode.cache_clear()
-    files, files_s = synced(lambda: run_two_view(paths, kfile, outdir=None, generator=gen(),
-                                                 quiet=True))
-    dgrays = [pio.imread(p, dtype="float32", force_grayscale=True) for p in paths]
-    dcolors = [pio.imread(p, dtype="uint8") for p in paths]
-    arrays, arrays_s = synced(lambda: run_two_view_arrays(dgrays, dcolors, np.loadtxt(kfile),
-                                                          generator=gen(), quiet=True))
-    same = {k: same_bytes(np, files[k], arrays[k]) for k in ("matches", "points", "rectified")}
-    same["inliers"] = same_bytes(np, files["ransac"]["inlier_idx"], arrays["ransac"]["inlier_idx"])
-    same["essential"] = same_bytes(np, files["ransac"]["essential"], arrays["ransac"]["essential"])
-    gate(all(same.values()), "files_vs_arrays")
-    rect = [r[..., 0] if r.ndim == 3 else r for r in files["rectified"][:2]]
-    cli_rect = [pio.imread(d("ex01_cli", f"rect-im{i}.png"), dtype="uint8") for i in (0, 1)]
-    cli_ply = pio.read_ply(d("ex01_cli", "sparse_inliers.ply"))
-    gate(cli_ply.shape[0] == files["metrics"]["n_inliers"], "cli_ply_vertices")
-    gate(all(same_bytes(np, a, b) for a, b in zip(cli_rect, rect)), "cli_rect")
-    rot, t_err = check_two_view(np, files, R_gt, t_gt)
+        # both without outputs, so that the difference is the two decodes
+        pio._decode.cache_clear()
+        files, files_s = synced(lambda: run_two_view(paths, kfile, outdir=None, generator=gen(),
+                                                     quiet=True))
+        dgrays = [pio.imread(p, dtype="float32", force_grayscale=True) for p in paths]
+        dcolors = [pio.imread(p, dtype="uint8") for p in paths]
+        arrays, arrays_s = synced(lambda: run_two_view_arrays(dgrays, dcolors, np.loadtxt(kfile),
+                                                              generator=gen(), quiet=True))
+        same = {k: same_bytes(np, files[k], arrays[k]) for k in ("matches", "points", "rectified")}
+        same["inliers"] = same_bytes(np, files["ransac"]["inlier_idx"],
+                                     arrays["ransac"]["inlier_idx"])
+        same["essential"] = same_bytes(np, files["ransac"]["essential"],
+                                       arrays["ransac"]["essential"])
+        gate(all(same.values()), "files_vs_arrays")
+        rect = [r[..., 0] if r.ndim == 3 else r for r in files["rectified"][:2]]
+        cli_rect = [pio.imread(d("ex01_cli", f"rect-im{i}.png"), dtype="uint8") for i in (0, 1)]
+        cli_ply = pio.read_ply(d("ex01_cli", "sparse_inliers.ply"))
+        gate(cli_ply.shape[0] == files["metrics"]["n_inliers"], "cli_ply_vertices")
+        gate(all(same_bytes(np, a, b) for a, b in zip(cli_rect, rect)), "cli_rect")
+        rot, t_err = check_two_view(np, files, R_gt, t_gt)
 
-    # --cache: written, then loaded
-    argv = [*paths, kfile, "--seed", str(SEED)]
-    c1 = quiet_main(ex01.main, argv + ["--outdir", d("cache"), "--cache"])
-    c2 = quiet_main(ex01.main, argv + ["--outdir", d("cache"), "--cache"])
-    gate(c2["metrics"].get("match_cache_hit") is True and "match_cache_hit" not in c1["metrics"]
-         and same_bytes(np, c1["ransac"]["inlier_idx"], c2["ransac"]["inlier_idx"])
-         and same_bytes(np, c1["ransac"]["essential"], c2["ransac"]["essential"]), "cache")
-    out["ex01"] = {"cold_cli_s": cli_s, "warm_files_s": files_s, "warm_arrays_s": arrays_s,
-                   "identical": same, "n_inliers": files["metrics"]["n_inliers"],
-                   "consensus": files["metrics"]["consensus"], "rotation_err_deg": rot,
-                   "translation_err_deg": t_err,
-                   # step 5 writing rect-* (ex01.main's first --cache run) and not
-                   "step5_with_files_s": c1["metrics"]["step5_seconds"],
-                   "step5_s": arrays["metrics"]["step5_seconds"],
-                   "cli_ply_bytes_equal": file_bytes(d("ex01_cli", names[0])) == file_bytes(
-                       d("cache", names[0]))}
-    out["cache"] = {"first_s": c1["metrics"]["total_seconds"],
-                    "resumed_s": c2["metrics"]["total_seconds"]}
+        # --cache: written, then loaded
+        argv = [*paths, kfile, "--seed", str(SEED)]
+        c1 = quiet_main(ex01.main, argv + ["--outdir", d("cache"), "--cache"])
+        c2 = quiet_main(ex01.main, argv + ["--outdir", d("cache"), "--cache"])
+        gate(c2["metrics"].get("match_cache_hit") is True and "match_cache_hit" not in c1["metrics"]
+             and same_bytes(np, c1["ransac"]["inlier_idx"], c2["ransac"]["inlier_idx"])
+             and same_bytes(np, c1["ransac"]["essential"], c2["ransac"]["essential"]), "cache")
+        out["ex01"] = {"cold_cli_s": cli_s, "warm_files_s": files_s, "warm_arrays_s": arrays_s,
+                       "identical": same, "n_inliers": files["metrics"]["n_inliers"],
+                       "consensus": files["metrics"]["consensus"], "rotation_err_deg": rot,
+                       "translation_err_deg": t_err,
+                       # step 5 writing rect-* (ex01.main's first --cache run) and not
+                       "step5_with_files_s": c1["metrics"]["step5_seconds"],
+                       "step5_s": arrays["metrics"]["step5_seconds"],
+                       "cli_ply_bytes_equal": file_bytes(d("ex01_cli", names[0])) == file_bytes(
+                           d("cache", names[0]))}
+        out["cache"] = {"first_s": c1["metrics"]["total_seconds"],
+                        "resumed_s": c2["metrics"]["total_seconds"]}
 
-    # --rsf 0.5 and --reproj (twice the default threshold), on the pair
-    # as RGBA files: distinct channels, a varying alpha
-    cpaths = [d(f"c{i}.png") for i in (0, 1)]
-    for p, c in zip(cpaths, colors):
-        g = c.astype(np.int32)
-        pio.imsave(p, np.stack([g, 3 * g // 4 + 32, g // 2 + 100, 255 - g // 8],
-                               axis=-1).astype(np.uint8))
-    rr = quiet_main(ex01.main, [*cpaths, kfile, "--seed", str(SEED), "--outdir", d("rsf"),
-                                "--rsf", "0.5", "--reproj", "6.7e-4"])
-    w_full, w_half = files["rectified"][0].shape[1], rr["rectified"][0].shape[1]
-    gate(int(0.5 * W) - 2 <= w_half <= int(0.5 * W) and w_full > int(0.9 * W), "rsf")
-    crect = [pio.imread(d("rsf", f"rect-c{i}.png"), dtype="uint8") for i in (0, 1)]
-    gate(all(r.ndim == 3 and r.shape[2] == 4 and same_bytes(np, r, q)
-             for r, q in zip(crect, rr["rectified"][:2])), "rgba_rect")
-    rot, t_err = check_two_view(np, rr, R_gt, t_gt)
-    out["rsf_reproj"] = {"rect_shape": list(crect[0].shape), "rect_width_rsf1": w_full,
-                         "n_inliers": rr["metrics"]["n_inliers"], "rotation_err_deg": rot,
-                         "translation_err_deg": t_err}
+        # --rsf 0.5 and --reproj (twice the default threshold), on the pair
+        # as RGBA files: distinct channels, a varying alpha
+        cpaths = [d(f"c{i}.png") for i in (0, 1)]
+        for p, c in zip(cpaths, colors):
+            g = c.astype(np.int32)
+            pio.imsave(p, np.stack([g, 3 * g // 4 + 32, g // 2 + 100, 255 - g // 8],
+                                   axis=-1).astype(np.uint8))
+        rr = quiet_main(ex01.main, [*cpaths, kfile, "--seed", str(SEED), "--outdir", d("rsf"),
+                                    "--rsf", "0.5", "--reproj", "6.7e-4"])
+        w_full, w_half = files["rectified"][0].shape[1], rr["rectified"][0].shape[1]
+        gate(int(0.5 * W) - 2 <= w_half <= int(0.5 * W) and w_full > int(0.9 * W), "rsf")
+        crect = [pio.imread(d("rsf", f"rect-c{i}.png"), dtype="uint8") for i in (0, 1)]
+        gate(all(r.ndim == 3 and r.shape[2] == 4 and same_bytes(np, r, q)
+                 for r, q in zip(crect, rr["rectified"][:2])), "rgba_rect")
+        rot, t_err = check_two_view(np, rr, R_gt, t_gt)
+        out["rsf_reproj"] = {"rect_shape": list(crect[0].shape), "rect_width_rsf1": w_full,
+                             "n_inliers": rr["metrics"]["n_inliers"], "rotation_err_deg": rot,
+                             "translation_err_deg": t_err}
 
-    # --ba and --ba --distortion at 2048x3072, and at 240x320 card vs CPU
-    seen = []
-    undo = capture_ba(sfm_pkg, seen)
-    try:
-        out["ba"] = {}
-        for name, flags in (("ba", ["--ba"]), ("ba_distortion", ["--ba", "--distortion"])):
-            res = quiet_main(ex01.main, argv + ["--outdir", d(name), *flags])
-            rot, t_err = check_two_view(np, res, R_gt, t_gt)
-            h, k = seen[-1]["history"], seen[-1]["k"]
-            gate(h[-1] <= h[0], f"{name}_cost")
-            if k is not None:
-                gate(max(abs(v) for v in k) < 1e-2, f"{name}_k")
-            out["ba"][name] = {"step4_s": res["metrics"]["step4_seconds"], "cost": [h[0], h[-1]],
-                               "k": k, "rotation_err_deg": rot, "translation_err_deg": t_err}
-        sg, sc, sK, _ = small
-        spaths = [d(f"s{i}.png") for i in (0, 1)]
-        for p, c in zip(spaths, sc):
-            pio.imsave(p, c)
-        np.savetxt(d("Ks.txt"), sK)
-        sargv = [*spaths, d("Ks.txt"), "--seed", str(SEED), "--cache", "--reproj", "1e-2"]
-        os.makedirs(d("small_cpu"))
-        costs = {}
-        for dev in ("cuda", "cpu"):
+        # --ba and --ba --distortion at 2048x3072, and at 240x320 card vs CPU
+        seen = []
+        undo = capture_ba(sfm_pkg, seen)
+        try:
+            out["ba"] = {}
             for name, flags in (("ba", ["--ba"]), ("ba_distortion", ["--ba", "--distortion"])):
-                quiet_main(ex01.main, sargv + ["--outdir", d(f"small_{dev}"), "--device", dev,
-                                           *flags])
-                costs.setdefault(name, {})[dev] = seen[-1]["history"][-1]
-            if dev == "cuda":  # the CPU runs take the card's matches
-                shutil.copy(d("small_cuda", "cache.npz"), d("small_cpu", "cache.npz"))
-    finally:
-        undo()
-    for name, bound in (("ba", 1e-6), ("ba_distortion", 1e-4)):
-        c = costs[name]
-        c["rel_diff"] = abs(c["cuda"] - c["cpu"]) / abs(c["cpu"])
-        c["bound"] = bound
-        gate(c["rel_diff"] < bound, f"small_{name}_cpu")
-    out["ba_small_card_vs_cpu"] = costs
+                res = quiet_main(ex01.main, argv + ["--outdir", d(name), *flags])
+                rot, t_err = check_two_view(np, res, R_gt, t_gt)
+                h, k = seen[-1]["history"], seen[-1]["k"]
+                gate(h[-1] <= h[0], f"{name}_cost")
+                if k is not None:
+                    gate(max(abs(v) for v in k) < 1e-2, f"{name}_k")
+                out["ba"][name] = {"step4_s": res["metrics"]["step4_seconds"],
+                                   "cost": [h[0], h[-1]], "k": k, "rotation_err_deg": rot,
+                                   "translation_err_deg": t_err}
+            sg, sc, sK, _ = small
+            spaths = [d(f"s{i}.png") for i in (0, 1)]
+            for p, c in zip(spaths, sc):
+                pio.imsave(p, c)
+            np.savetxt(d("Ks.txt"), sK)
+            sargv = [*spaths, d("Ks.txt"), "--seed", str(SEED), "--cache", "--reproj", "1e-2"]
+            os.makedirs(d("small_cpu"))
+            costs = {}
+            for dev in ("cuda", "cpu"):
+                for name, flags in (("ba", ["--ba"]), ("ba_distortion", ["--ba", "--distortion"])):
+                    quiet_main(ex01.main, sargv + ["--outdir", d(f"small_{dev}"), "--device", dev,
+                                               *flags])
+                    costs.setdefault(name, {})[dev] = seen[-1]["history"][-1]
+                if dev == "cuda":  # the CPU runs take the card's matches
+                    shutil.copy(d("small_cuda", "cache.npz"), d("small_cpu", "cache.npz"))
+        finally:
+            undo()
+        for name, bound in (("ba", 1e-6), ("ba_distortion", 1e-4)):
+            c = costs[name]
+            c["rel_diff"] = abs(c["cuda"] - c["cpu"]) / abs(c["cpu"])
+            c["bound"] = bound
+            gate(c["rel_diff"] < bound, f"small_{name}_cpu")
+        out["ba_small_card_vs_cpu"] = costs
 
-    # --trace on the small pair: the trace names the three kernels
-    quiet_main(ex01.main, [*spaths, d("Ks.txt"), "--outdir", d("small_trace"), "--trace",
-                           d("trace")])
-    traces = [f for f in os.listdir(d("trace")) if f.endswith(".json")]
-    text = "".join(file_bytes(d("trace", f)).decode() for f in traces)
-    found = {name: any(f in text for f in fns) for name, fns in DEVICE_FUNCTIONS.items()}
-    gate(bool(traces) and all(found.values()), "trace")
-    out["trace"] = {"files": len(traces), "bytes": len(text), "kernels": found}
+        # --trace on the small pair: the trace names the three kernels
+        quiet_main(ex01.main, [*spaths, d("Ks.txt"), "--outdir", d("small_trace"), "--trace",
+                               d("trace")])
+        traces = [f for f in os.listdir(d("trace")) if f.endswith(".json")]
+        text = "".join(file_bytes(d("trace", f)).decode() for f in traces)
+        found = {name: any(f in text for f in fns) for name, fns in device_functions().items()}
+        gate(bool(traces) and all(found.values()), "trace")
+        out["trace"] = {"files": len(traces), "bytes": len(text), "kernels": found}
 
-    # ex02 cold, as a user runs it, then resuming from its checkpoint
-    vgrays, vcolors, vK, poses = render_views(SFM_VIEWS, SFM_H, SFM_W, "cuda", SFM_TEX)
-    gt_C = np.array([C for _, _, C in poses])
-    vpaths = [d(f"v{i:02d}.png") for i in range(SFM_VIEWS)]
-    for p, c in zip(vpaths, vcolors):
-        pio.imsave(p, c)
-    np.savetxt(d("Kv.txt"), vK)
-    span = np.ptp(gt_C, axis=0).max()
-    out["ex02"] = {}
-    for name in ("cold", "resume"):
-        secs, stdout = run_cli("spectavi_tpu_torch.pipeline.ex02",
-                               [*vpaths, d("Kv.txt"), "--pairs", "exhaustive", "--checkpoint",
-                                d("ex02_state.npz"), "--outdir", d(f"ex02_{name}"),
-                                "--seed", str(SEED)])
-        with open(d(f"ex02_{name}", "metrics.json")) as f:
-            m = json.load(f)
-        cams = np.loadtxt(d(f"ex02_{name}", "poses.txt"))
-        share = ate_rmse(camera_centers(cams), gt_C) / span
-        resumed = "resuming BA from checkpoint" in stdout
-        pairs_ok = len(m["pairs"]) == SFM_VIEWS * (SFM_VIEWS - 1) // 2 and all(
-            p.get("success") for p in m["pairs"])
-        gate(pairs_ok and share < 0.02 and resumed == (name == "resume"), f"ex02_{name}")
-        out["ex02"][name] = {"cli_s": secs, "pairs": len(m["pairs"]),
-                             "failed_pairs": [p["pair"] for p in m["pairs"] if not p.get("success")],
-                             "min_inlier_percent": min(p.get("inlier_percent", 0.0)
-                                                       for p in m["pairs"]),
-                             "init_used": m["init_used"], "pair_backend": m["pair_backend"],
-                             "tracks": m["n_tracks"], "ate_share": share, "resumed": resumed,
-                             "ba_cost": [m["ba_cost_initial"], m["ba_cost_final"]]}
+        # ex02 cold, as a user runs it, then resuming from its checkpoint
+        vgrays, vcolors, vK, poses = render_views(SFM_VIEWS, SFM_H, SFM_W, "cuda", SFM_TEX)
+        gt_C = np.array([C for _, _, C in poses])
+        vpaths = [d(f"v{i:02d}.png") for i in range(SFM_VIEWS)]
+        for p, c in zip(vpaths, vcolors):
+            pio.imsave(p, c)
+        np.savetxt(d("Kv.txt"), vK)
+        span = np.ptp(gt_C, axis=0).max()
+        out["ex02"] = {}
+        for name in ("cold", "resume"):
+            secs, stdout = run_cli("spectavi_tpu_torch.pipeline.ex02",
+                                   [*vpaths, d("Kv.txt"), "--pairs", "exhaustive", "--checkpoint",
+                                    d("ex02_state.npz"), "--outdir", d(f"ex02_{name}"),
+                                    "--seed", str(SEED)])
+            with open(d(f"ex02_{name}", "metrics.json")) as f:
+                m = json.load(f)
+            cams = np.loadtxt(d(f"ex02_{name}", "poses.txt"))
+            share = ate_rmse(camera_centers(cams), gt_C) / span
+            resumed = "resuming BA from checkpoint" in stdout
+            pairs_ok = len(m["pairs"]) == SFM_VIEWS * (SFM_VIEWS - 1) // 2 and all(
+                p.get("success") for p in m["pairs"])
+            gate(pairs_ok and share < 0.02 and resumed == (name == "resume"), f"ex02_{name}")
+            out["ex02"][name] = {"cli_s": secs, "pairs": len(m["pairs"]),
+                                 "failed_pairs": [p["pair"] for p in m["pairs"]
+                                                  if not p.get("success")],
+                                 "min_inlier_percent": min(p.get("inlier_percent", 0.0)
+                                                           for p in m["pairs"]),
+                                 "init_used": m["init_used"], "pair_backend": m["pair_backend"],
+                                 "tracks": m["n_tracks"], "ate_share": share, "resumed": resumed,
+                                 "ba_cost": [m["ba_cost_initial"], m["ba_cost_final"]]}
 
-    # run_sfm from the same files with init="chain", loss="linear"
-    res, secs = synced(lambda: run_sfm(vpaths, d("Kv.txt"), pairs="exhaustive", init="chain",
-                                       loss="linear", generator=gen(), quiet=True))
-    share = ate_rmse(camera_centers(res["cams"]), gt_C) / span
-    m = res["metrics"]
-    gate(m["init_used"] == "chain" and share < 0.02
-         and m["ba_cost_final"] <= m["ba_cost_initial"], "chain_linear")
-    out["chain_linear"] = {"s": secs, "ate_share": share, "init_used": m["init_used"],
-                           "tracks": m["n_tracks"]}
+        # run_sfm from the same files with init="chain", loss="linear"
+        res, secs = synced(lambda: run_sfm(vpaths, d("Kv.txt"), pairs="exhaustive", init="chain",
+                                           loss="linear", generator=gen(), quiet=True))
+        share = ate_rmse(camera_centers(res["cams"]), gt_C) / span
+        m = res["metrics"]
+        gate(m["init_used"] == "chain" and share < 0.02
+             and m["ba_cost_final"] <= m["ba_cost_initial"], "chain_linear")
+        out["chain_linear"] = {"s": secs, "ate_share": share, "init_used": m["init_used"],
+                               "tracks": m["n_tracks"]}
 
-    # host-form SIFT on one view: the card against the port on the CPU
-    g0 = vgrays[0]
-    ref = sift.sift_filter(g0, device="cpu")
-    ref_striped = sift.sift_filter_striped(g0, nthread=3, device="cpu")
-    out["host_sift"] = {}
-    for name, got, r in (("sift_filter", sift.sift_filter(g0, device="cuda"), ref),
-                         ("sift_filter_batch", sift.sift_filter_batch([g0], device="cuda")[0], ref),
-                         ("sift_filter_striped",
-                          sift.sift_filter_striped(g0, nthread=3, device="cuda"), ref_striped)):
-        kp_share, byte_share = sift_agreement(np, r, got)
-        gate(abs(len(got) - len(r)) <= 0.01 * len(r) and kp_share >= 0.99
-             and byte_share >= 0.99, name)
-        out["host_sift"][name] = {"keypoints": [len(got), len(r)], "kp_share": kp_share,
-                                  "byte_share": byte_share}
+        # host-form SIFT on one view: the card against the port on the CPU
+        g0 = vgrays[0]
+        ref = sift.sift_filter(g0, device="cpu")
+        ref_striped = sift.sift_filter_striped(g0, nthread=3, device="cpu")
+        out["host_sift"] = {}
+        for name, got, r in (("sift_filter", sift.sift_filter(g0, device="cuda"), ref),
+                             ("sift_filter_batch",
+                              sift.sift_filter_batch([g0], device="cuda")[0], ref),
+                             ("sift_filter_striped",
+                              sift.sift_filter_striped(g0, nthread=3, device="cuda"), ref_striped)):
+            kp_share, byte_share = sift_agreement(np, r, got)
+            gate(abs(len(got) - len(r)) <= 0.01 * len(r) and kp_share >= 0.99
+                 and byte_share >= 0.99, name)
+            out["host_sift"][name] = {"keypoints": [len(got), len(r)], "kp_share": kp_share,
+                                      "byte_share": byte_share}
 
-    launches = {name: mod_.launches for name, mod_ in wrappers.items()}
     gate(all(v > 0 for v in launches.values()), "launches")
     emit("entry_points", launches=launches, failed=bad, **out)
     if bad:
@@ -1914,12 +1777,6 @@ def jpeg_digest_arrays(np):
     rgb = np.stack([(x * x * 7 + y * 13 + x * y * 3) % 256, (x * 5 + y * y * 11 + 17) % 256,
                     ((x ^ y) * 9 + x * y) % 256], axis=-1).astype(np.uint8)
     return rgb, rgb[..., 1].copy()
-
-
-def as_rgb(np, gray):
-    """A rendered gray view as RGB with distinct channels."""
-    g = gray.astype(np.int32)
-    return np.stack([g, 3 * g // 4 + 32, g // 2 + 100], axis=-1).astype(np.uint8)
 
 
 def cli_vs_arrays(np, cli_dir, arrays_dir, arrays, names):
@@ -1971,6 +1828,7 @@ def phase_jpeg(torch, np, pair, wrappers, smi):
     import shutil
     import tempfile
 
+    from sfmbench import scene
     from spectavi_tpu_torch.pipeline import io as pio
     from spectavi_tpu_torch.pipeline.jpeg import read_jpeg, write_jpeg
     from spectavi_tpu_torch.pipeline.sfm import run_sfm
@@ -1982,8 +1840,6 @@ def phase_jpeg(torch, np, pair, wrappers, smi):
     jp_dir = tempfile.mkdtemp(prefix="jpeg-", dir=os.path.join(ROOT, "build"))
     d = lambda *p: os.path.join(jp_dir, *p)
     sha = lambda b: hashlib.sha256(b).hexdigest()
-    for mod_ in wrappers.values():
-        mod_.launches = 0
     out, bad = {"card": smi}, []
 
     def gate(ok, name):
@@ -2002,90 +1858,91 @@ def phase_jpeg(torch, np, pair, wrappers, smi):
         g.manual_seed(SEED)
         return g
 
-    # the codec on this host against Pillow's pinned answers
-    data = file_bytes(os.path.join(ROOT, CASTLE_JPG))
-    castle, castle_dec = timed(lambda: read_jpeg(data))
-    _, castle_enc = timed(lambda: write_jpeg(d("castle.jpg"), castle))
-    rgb_s, gray_s = jpeg_digest_arrays(np)
-    write_jpeg(d("digest_rgb.jpg"), rgb_s)
-    write_jpeg(d("digest_gray.jpg"), gray_s)
-    digests = {"castle_pixels": sha(castle.tobytes()),
-               "rgb_file": sha(file_bytes(d("digest_rgb.jpg"))),
-               "gray_file": sha(file_bytes(d("digest_gray.jpg")))}
-    for name, value in digests.items():
-        gate(value == JPEG_SHA256[name], f"{name}_digest")
-    gate(castle.shape == (599, 800, 3), "castle_shape")
+    with launch_counts(wrappers) as launches:
+        # the codec on this host against Pillow's pinned answers
+        data = file_bytes(os.path.join(ROOT, CASTLE_JPG))
+        castle, castle_dec = timed(lambda: read_jpeg(data))
+        _, castle_enc = timed(lambda: write_jpeg(d("castle.jpg"), castle))
+        rgb_s, gray_s = jpeg_digest_arrays(np)
+        write_jpeg(d("digest_rgb.jpg"), rgb_s)
+        write_jpeg(d("digest_gray.jpg"), gray_s)
+        digests = {"castle_pixels": sha(castle.tobytes()),
+                   "rgb_file": sha(file_bytes(d("digest_rgb.jpg"))),
+                   "gray_file": sha(file_bytes(d("digest_gray.jpg")))}
+        for name, value in digests.items():
+            gate(value == JPEG_SHA256[name], f"{name}_digest")
+        gate(castle.shape == (599, 800, 3), "castle_shape")
 
-    # the rendered pair as RGB files at 2048x3072
-    rgbs = [as_rgb(np, c) for c in colors]
-    paths = [d(f"im{i}.jpg") for i in (0, 1)]
-    kfile = d("K.txt")
-    np.savetxt(kfile, K)
-    _, enc_rgb = timed(lambda: write_jpeg(paths[0], rgbs[0], quality=JPEG_QUALITY))
-    write_jpeg(paths[1], rgbs[1], quality=JPEG_QUALITY)
-    data = file_bytes(paths[0])
-    dec, dec_rgb = timed(lambda: read_jpeg(data))
-    err = float(np.abs(dec.astype(np.int16) - rgbs[0]).mean())
-    gate(dec.shape == rgbs[0].shape and same_bytes(np, dec, read_jpeg(data)) and err < 3.0,
-         "decode_rgb")
-    gate(dec_rgb < 1.0, "decode_rgb_under_1s")
-    out["codec"] = {"digests": digests, "castle_shape": list(castle.shape),
-                    "castle_decode_s": castle_dec, "castle_encode_s": castle_enc,
-                    "shape": list(rgbs[0].shape), "quality": JPEG_QUALITY,
-                    "encode_rgb_s": enc_rgb, "decode_rgb_s": dec_rgb, "rgb_bytes": len(data),
-                    "mean_abs_err": err}
+        # the rendered pair as RGB files at 2048x3072
+        rgbs = [scene.as_rgb(c) for c in colors]
+        paths = [d(f"im{i}.jpg") for i in (0, 1)]
+        kfile = d("K.txt")
+        np.savetxt(kfile, K)
+        _, enc_rgb = timed(lambda: write_jpeg(paths[0], rgbs[0], quality=JPEG_QUALITY))
+        write_jpeg(paths[1], rgbs[1], quality=JPEG_QUALITY)
+        data = file_bytes(paths[0])
+        dec, dec_rgb = timed(lambda: read_jpeg(data))
+        err = float(np.abs(dec.astype(np.int16) - rgbs[0]).mean())
+        gate(dec.shape == rgbs[0].shape and same_bytes(np, dec, read_jpeg(data)) and err < 3.0,
+             "decode_rgb")
+        gate(dec_rgb < 1.0, "decode_rgb_under_1s")
+        out["codec"] = {"digests": digests, "castle_shape": list(castle.shape),
+                        "castle_decode_s": castle_dec, "castle_encode_s": castle_enc,
+                        "shape": list(rgbs[0].shape), "quality": JPEG_QUALITY,
+                        "encode_rgb_s": enc_rgb, "decode_rgb_s": dec_rgb, "rgb_bytes": len(data),
+                        "mean_abs_err": err}
 
-    # ex01 cold, as a user runs it, against the array path on the decodes
-    cli_s, _ = run_cli("spectavi_tpu_torch.pipeline.ex01",
-                       [*paths, kfile, "--outdir", d("ex01_cli"), "--seed", str(SEED), "--cache"])
-    names = ("sparse_inliers.ply", "rect-im0.jpg", "rect-im1.jpg", "metrics.json", "cache.npz")
-    gate(all(os.path.getsize(d("ex01_cli", n)) > 0 for n in names), "ex01_cli_outputs")
-    # warm, without outputs: the file path against the arrays it decodes
-    pio._decode.cache_clear()
-    files, files_s = timed(lambda: run_two_view(paths, kfile, outdir=None, generator=gen(),
-                                                quiet=True))
-    dgrays = [pio.imread(p, dtype="float32", force_grayscale=True) for p in paths]
-    dcolors = [pio.imread(p, dtype="uint8") for p in paths]
-    bare, bare_s = timed(lambda: run_two_view_arrays(dgrays, dcolors, np.loadtxt(kfile),
-                                                     generator=gen(), quiet=True))
-    gate(all(same_bytes(np, files[k], bare[k]) for k in ("matches", "points", "rectified"))
-         and same_bytes(np, files["ransac"]["essential"], bare["ransac"]["essential"]),
-         "files_vs_arrays")
-    arrays = run_two_view_arrays(dgrays, dcolors, np.loadtxt(kfile), image_names=paths,
-                                 outdir=d("arrays"), cache=True, generator=gen(), quiet=True)
-    same, rect_ok, rect_shape = cli_vs_arrays(np, d("ex01_cli"), d("arrays"), arrays, names)
-    m = arrays["metrics"]
-    gate(all(same.values()), "cli_vs_arrays")
-    gate(rect_ok, "rect_read_back")
-    try:
-        rot, t_err = check_two_view(np, arrays, R_gt, t_gt)
-    except AssertionError as e:
-        rot = t_err = None
-        gate(False, f"two_view: {e}")
-    out["ex01"] = {"cold_cli_s": cli_s, "warm_files_s": files_s, "warm_arrays_s": bare_s,
-                   "identical": same,
-                   "keypoints": m["keypoints"], "n_matches": m["n_matches"],
-                   "n_inliers": m["n_inliers"], "consensus": m["consensus"],
-                   "rotation_err_deg": rot, "translation_err_deg": t_err,
-                   "rect_shape": rect_shape}
+        # ex01 cold, as a user runs it, against the array path on the decodes
+        cli_s, _ = run_cli("spectavi_tpu_torch.pipeline.ex01",
+                           [*paths, kfile, "--outdir", d("ex01_cli"), "--seed", str(SEED),
+                            "--cache"])
+        names = ("sparse_inliers.ply", "rect-im0.jpg", "rect-im1.jpg", "metrics.json", "cache.npz")
+        gate(all(os.path.getsize(d("ex01_cli", n)) > 0 for n in names), "ex01_cli_outputs")
+        # warm, without outputs: the file path against the arrays it decodes
+        pio._decode.cache_clear()
+        files, files_s = timed(lambda: run_two_view(paths, kfile, outdir=None, generator=gen(),
+                                                    quiet=True))
+        dgrays = [pio.imread(p, dtype="float32", force_grayscale=True) for p in paths]
+        dcolors = [pio.imread(p, dtype="uint8") for p in paths]
+        bare, bare_s = timed(lambda: run_two_view_arrays(dgrays, dcolors, np.loadtxt(kfile),
+                                                         generator=gen(), quiet=True))
+        gate(all(same_bytes(np, files[k], bare[k]) for k in ("matches", "points", "rectified"))
+             and same_bytes(np, files["ransac"]["essential"], bare["ransac"]["essential"]),
+             "files_vs_arrays")
+        arrays = run_two_view_arrays(dgrays, dcolors, np.loadtxt(kfile), image_names=paths,
+                                     outdir=d("arrays"), cache=True, generator=gen(), quiet=True)
+        same, rect_ok, rect_shape = cli_vs_arrays(np, d("ex01_cli"), d("arrays"), arrays, names)
+        m = arrays["metrics"]
+        gate(all(same.values()), "cli_vs_arrays")
+        gate(rect_ok, "rect_read_back")
+        try:
+            rot, t_err = check_two_view(np, arrays, R_gt, t_gt)
+        except AssertionError as e:
+            rot = t_err = None
+            gate(False, f"two_view: {e}")
+        out["ex01"] = {"cold_cli_s": cli_s, "warm_files_s": files_s, "warm_arrays_s": bare_s,
+                       "identical": same,
+                       "keypoints": m["keypoints"], "n_matches": m["n_matches"],
+                       "n_inliers": m["n_inliers"], "consensus": m["consensus"],
+                       "rotation_err_deg": rot, "translation_err_deg": t_err,
+                       "rect_shape": rect_shape}
 
-    # run_sfm from the 10 views as RGB JPEG
-    vgrays, vcolors, vK, poses = render_views(SFM_VIEWS, SFM_H, SFM_W, "cuda", SFM_TEX)
-    gt_C = np.array([C for _, _, C in poses])
-    vpaths = [d(f"v{i:02d}.jpg") for i in range(SFM_VIEWS)]
-    for p, c in zip(vpaths, vcolors):
-        write_jpeg(p, as_rgb(np, c), quality=JPEG_QUALITY)
-    np.savetxt(d("Kv.txt"), vK)
-    res, secs = timed(lambda: run_sfm(vpaths, d("Kv.txt"), generator=gen(), quiet=True))
-    share = ate_rmse(camera_centers(res["cams"]), gt_C) / np.ptp(gt_C, axis=0).max()
-    sm = res["metrics"]
-    gate(all(p.get("success") for p in sm["pairs"]) and sm["init_used"] == "pnp"
-         and share < 0.02, "run_sfm")
-    out["run_sfm"] = {"s": secs, "pairs": len(sm["pairs"]), "init_used": sm["init_used"],
-                      "pair_backend": sm["pair_backend"], "tracks": sm["n_tracks"],
-                      "ate_share": share}
+        # run_sfm from the 10 views as RGB JPEG
+        vgrays, vcolors, vK, poses = render_views(SFM_VIEWS, SFM_H, SFM_W, "cuda", SFM_TEX)
+        gt_C = np.array([C for _, _, C in poses])
+        vpaths = [d(f"v{i:02d}.jpg") for i in range(SFM_VIEWS)]
+        for p, c in zip(vpaths, vcolors):
+            write_jpeg(p, scene.as_rgb(c), quality=JPEG_QUALITY)
+        np.savetxt(d("Kv.txt"), vK)
+        res, secs = timed(lambda: run_sfm(vpaths, d("Kv.txt"), generator=gen(), quiet=True))
+        share = ate_rmse(camera_centers(res["cams"]), gt_C) / np.ptp(gt_C, axis=0).max()
+        sm = res["metrics"]
+        gate(all(p.get("success") for p in sm["pairs"]) and sm["init_used"] == "pnp"
+             and share < 0.02, "run_sfm")
+        out["run_sfm"] = {"s": secs, "pairs": len(sm["pairs"]), "init_used": sm["init_used"],
+                          "pair_backend": sm["pair_backend"], "tracks": sm["n_tracks"],
+                          "ate_share": share}
 
-    launches = {name: mod_.launches for name, mod_ in wrappers.items()}
     gate(all(v > 0 for v in launches.values()), "launches")
     emit("jpeg", launches=launches, failed=bad, **out)
     if bad:
@@ -2144,8 +2001,6 @@ def phase_jpeg_progressive(torch, np, wrappers, smi):
     jp_dir = tempfile.mkdtemp(prefix="jpeg-progressive-", dir=os.path.join(ROOT, "build"))
     d = lambda *p: os.path.join(jp_dir, *p)
     fx = lambda *p: os.path.join(ROOT, JPEG_FIXTURES, *p)
-    for mod_ in wrappers.values():
-        mod_.launches = 0
     out, bad = {"card": smi}, []
 
     def gate(ok, name):
@@ -2157,58 +2012,60 @@ def phase_jpeg_progressive(torch, np, wrappers, smi):
         res = fn()
         return res, time.perf_counter() - t0
 
-    # every fixture against Pillow's pinned decode
-    decoded, seconds = {}, {}
-    for name, want in JPEG_FIXTURE_SHA256.items():
-        data = file_bytes(fx(name))
-        decoded[name], seconds[name] = timed(lambda: read_jpeg(data))
-        gate(decoded[name] is not None
-             and hashlib.sha256(decoded[name].tobytes()).hexdigest() == want, f"{name}_digest")
-    # the same pixels as baseline files, decoded in this run
-    write_jpeg(d("pair0-baseline.jpg"), decoded["pair0.jpg"], quality=90)
-    data = file_bytes(d("pair0-baseline.jpg"))
-    _, base_pair_s = timed(lambda: read_jpeg(data))
-    data = file_bytes(os.path.join(ROOT, CASTLE_JPG))
-    _, base_castle_s = timed(lambda: read_jpeg(data))
-    gate(seconds["pair0.jpg"] < 1.0, "decode_progressive_under_1s")
-    out["codec"] = {"decode_s": seconds, "shapes": {k: list(v.shape) for k, v in decoded.items()},
-                    "pair_bytes": os.path.getsize(fx("pair0.jpg")),
-                    "baseline_pair_decode_s": base_pair_s,
-                    "baseline_castle_decode_s": base_castle_s}
+    with launch_counts(wrappers) as launches:
+        # every fixture against Pillow's pinned decode
+        decoded, seconds = {}, {}
+        for name, want in JPEG_FIXTURE_SHA256.items():
+            data = file_bytes(fx(name))
+            decoded[name], seconds[name] = timed(lambda: read_jpeg(data))
+            gate(decoded[name] is not None
+                 and hashlib.sha256(decoded[name].tobytes()).hexdigest() == want, f"{name}_digest")
+        # the same pixels as baseline files, decoded in this run
+        write_jpeg(d("pair0-baseline.jpg"), decoded["pair0.jpg"], quality=90)
+        data = file_bytes(d("pair0-baseline.jpg"))
+        _, base_pair_s = timed(lambda: read_jpeg(data))
+        data = file_bytes(os.path.join(ROOT, CASTLE_JPG))
+        _, base_castle_s = timed(lambda: read_jpeg(data))
+        gate(seconds["pair0.jpg"] < 1.0, "decode_progressive_under_1s")
+        out["codec"] = {"decode_s": seconds,
+                        "shapes": {k: list(v.shape) for k, v in decoded.items()},
+                        "pair_bytes": os.path.getsize(fx("pair0.jpg")),
+                        "baseline_pair_decode_s": base_pair_s,
+                        "baseline_castle_decode_s": base_castle_s}
 
-    # ex01 cold, as a user runs it, against the array path on the decodes
-    paths, kfile = [fx("pair0.jpg"), fx("pair1.jpg")], fx("K.txt")
-    cli_s, _ = run_cli("spectavi_tpu_torch.pipeline.ex01",
-                       [*paths, kfile, "--outdir", d("ex01_cli"), "--seed", str(SEED), "--cache"])
-    names = ("sparse_inliers.ply", "rect-pair0.jpg", "rect-pair1.jpg", "metrics.json",
-             "cache.npz")
-    gate(all(os.path.getsize(d("ex01_cli", n)) > 0 for n in names), "ex01_cli_outputs")
-    pio._decode.cache_clear()
-    dgrays = [pio.imread(p, dtype="float32", force_grayscale=True) for p in paths]
-    dcolors = [pio.imread(p, dtype="uint8") for p in paths]
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    arrays, arrays_s = timed(lambda: run_two_view_arrays(
-        dgrays, dcolors, np.loadtxt(kfile), image_names=paths, outdir=d("arrays"), cache=True,
-        generator=gen, quiet=True))
-    same, rect_ok, rect_shape = cli_vs_arrays(np, d("ex01_cli"), d("arrays"), arrays, names)
-    m = arrays["metrics"]
-    gate(all(same.values()), "cli_vs_arrays")
-    gate(rect_ok, "rect_read_back")
-    pose = np.loadtxt(fx("pose.txt"))
-    try:
-        rot, t_err = check_two_view(np, arrays, pose[:, :3], pose[:, 3])
-    except AssertionError as e:
-        rot = t_err = None
-        gate(False, f"two_view: {e}")
-    gate(m["consensus"] >= 0.8, "consensus")
-    out["ex01"] = {"cold_cli_s": cli_s, "arrays_s": arrays_s, "identical": same,
-                   "keypoints": m["keypoints"], "n_matches": m["n_matches"],
-                   "n_inliers": m["n_inliers"], "consensus": m["consensus"],
-                   "rotation_err_deg": rot, "translation_err_deg": t_err,
-                   "rect_shape": rect_shape}
+        # ex01 cold, as a user runs it, against the array path on the decodes
+        paths, kfile = [fx("pair0.jpg"), fx("pair1.jpg")], fx("K.txt")
+        cli_s, _ = run_cli("spectavi_tpu_torch.pipeline.ex01",
+                           [*paths, kfile, "--outdir", d("ex01_cli"), "--seed", str(SEED),
+                            "--cache"])
+        names = ("sparse_inliers.ply", "rect-pair0.jpg", "rect-pair1.jpg", "metrics.json",
+                 "cache.npz")
+        gate(all(os.path.getsize(d("ex01_cli", n)) > 0 for n in names), "ex01_cli_outputs")
+        pio._decode.cache_clear()
+        dgrays = [pio.imread(p, dtype="float32", force_grayscale=True) for p in paths]
+        dcolors = [pio.imread(p, dtype="uint8") for p in paths]
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        arrays, arrays_s = timed(lambda: run_two_view_arrays(
+            dgrays, dcolors, np.loadtxt(kfile), image_names=paths, outdir=d("arrays"), cache=True,
+            generator=gen, quiet=True))
+        same, rect_ok, rect_shape = cli_vs_arrays(np, d("ex01_cli"), d("arrays"), arrays, names)
+        m = arrays["metrics"]
+        gate(all(same.values()), "cli_vs_arrays")
+        gate(rect_ok, "rect_read_back")
+        pose = np.loadtxt(fx("pose.txt"))
+        try:
+            rot, t_err = check_two_view(np, arrays, pose[:, :3], pose[:, 3])
+        except AssertionError as e:
+            rot = t_err = None
+            gate(False, f"two_view: {e}")
+        gate(m["consensus"] >= 0.8, "consensus")
+        out["ex01"] = {"cold_cli_s": cli_s, "arrays_s": arrays_s, "identical": same,
+                       "keypoints": m["keypoints"], "n_matches": m["n_matches"],
+                       "n_inliers": m["n_inliers"], "consensus": m["consensus"],
+                       "rotation_err_deg": rot, "translation_err_deg": t_err,
+                       "rect_shape": rect_shape}
 
-    launches = {name: mod_.launches for name, mod_ in wrappers.items()}
     gate(all(v > 0 for v in launches.values()), "launches")
     emit("jpeg_progressive", launches=launches, failed=bad, **out)
     if bad:
@@ -2441,6 +2298,7 @@ def phase_png_depths(torch, np, pair, small, wrappers, smi):
     import shutil
     import tempfile
 
+    from sfmbench import scene
     from spectavi_tpu_torch.pipeline import io as pio
     from spectavi_tpu_torch.pipeline.sfm import run_sfm_arrays
     from spectavi_tpu_torch.pipeline.two_view import run_two_view, run_two_view_arrays
@@ -2450,8 +2308,6 @@ def phase_png_depths(torch, np, pair, small, wrappers, smi):
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     pd_dir = tempfile.mkdtemp(prefix="png-depths-", dir=os.path.join(ROOT, "build"))
     d = lambda *p: os.path.join(pd_dir, *p)
-    for mod_ in wrappers.values():
-        mod_.launches = 0
     out, bad = {"card": smi}, []
 
     def gate(ok, name):
@@ -2525,7 +2381,7 @@ def phase_png_depths(torch, np, pair, small, wrappers, smi):
 
     # (b) decode seconds at the pair's size
     g16 = [to_depth(np, g, 16, SEED + i) for i, g in enumerate(grays)]
-    rgb8 = [as_rgb(np, c) for c in colors]
+    rgb8 = [scene.as_rgb(c) for c in colors]
     paths = [d(f"pair{i}.png") for i in (0, 1)]
     kfile = d("K.txt")
     np.savetxt(kfile, K)
@@ -2561,110 +2417,110 @@ def phase_png_depths(torch, np, pair, small, wrappers, smi):
     # (c) ex01 cold from the 16-bit gray pair, as a user runs it
     cli_s, _ = run_cli("spectavi_tpu_torch.pipeline.ex01",
                        [*paths, kfile, "--outdir", d("ex01_cli"), "--seed", str(SEED), "--cache"])
-    for mod_ in wrappers.values():
-        mod_.launches = 0
-    (arrays, same, _), warm_s = timed(lambda: files_vs_arrays(paths, kfile, "gray16"))
-    launches_c = {name: mod_.launches for name, mod_ in wrappers.items()}
-    gate(all(v > 0 for v in launches_c.values()), "ex01_launches")
-    gate(all(same.values()), "gray16_files_vs_arrays")
-    dcolors = decodes(paths)[1]
-    gate(all(c.dtype == np.uint16 for c in dcolors), "gray16_decodes_uint16")
-    names = ("sparse_inliers.ply", "rect-pair0.png", "rect-pair1.png", "metrics.json",
-             "cache.npz")
-    gate(all(os.path.getsize(d("ex01_cli", n)) > 0 for n in names), "ex01_cli_outputs")
-    cli_same, _, rect_shape = cli_vs_arrays(np, d("ex01_cli"), d("gray16-arrays"), arrays, names)
-    gate(all(cli_same.values()), "cli_vs_arrays")
-    # gray rect-* files: the rectified (H, W, 1) pixels, read back as (H, W)
-    gate(all(same_bytes(np, pio.imread(d("ex01_cli", n), dtype="uint8"), r[..., 0])
-             for n, r in zip(names[1:3], arrays["rectified"][:2])), "rect_read_back")
-    m = arrays["metrics"]
-    gate(m["consensus"] >= 0.8, "consensus")
-    try:
-        rot, t_err = check_two_view(np, arrays, R_gt, t_gt)
-    except AssertionError as e:
-        rot = t_err = None
-        gate(False, f"two_view: {e}")
-    out["ex01_gray16"] = {"cold_cli_s": cli_s, "files_and_arrays_s": warm_s,
-                          "identical": {**same, **{"cli_" + k: v for k, v in cli_same.items()}},
-                          "keypoints": m["keypoints"], "n_matches": m["n_matches"],
-                          "n_inliers": m["n_inliers"], "consensus": m["consensus"],
-                          "rotation_err_deg": rot, "translation_err_deg": t_err,
-                          "rect_shape": rect_shape, "launches": launches_c}
+    with launch_counts(wrappers) as launches:
+        with launch_counts(wrappers) as launches_c:
+            (arrays, same, _), warm_s = timed(lambda: files_vs_arrays(paths, kfile, "gray16"))
+        gate(all(v > 0 for v in launches_c.values()), "ex01_launches")
+        gate(all(same.values()), "gray16_files_vs_arrays")
+        dcolors = decodes(paths)[1]
+        gate(all(c.dtype == np.uint16 for c in dcolors), "gray16_decodes_uint16")
+        names = ("sparse_inliers.ply", "rect-pair0.png", "rect-pair1.png", "metrics.json",
+                 "cache.npz")
+        gate(all(os.path.getsize(d("ex01_cli", n)) > 0 for n in names), "ex01_cli_outputs")
+        cli_same, _, rect_shape = cli_vs_arrays(np, d("ex01_cli"), d("gray16-arrays"), arrays,
+                                                names)
+        gate(all(cli_same.values()), "cli_vs_arrays")
+        # gray rect-* files: the rectified (H, W, 1) pixels, read back as (H, W)
+        gate(all(same_bytes(np, pio.imread(d("ex01_cli", n), dtype="uint8"), r[..., 0])
+                 for n, r in zip(names[1:3], arrays["rectified"][:2])), "rect_read_back")
+        m = arrays["metrics"]
+        gate(m["consensus"] >= 0.8, "consensus")
+        try:
+            rot, t_err = check_two_view(np, arrays, R_gt, t_gt)
+        except AssertionError as e:
+            rot = t_err = None
+            gate(False, f"two_view: {e}")
+        out["ex01_gray16"] = {"cold_cli_s": cli_s, "files_and_arrays_s": warm_s,
+                              "identical": {**same, **{"cli_" + k: v for k, v in cli_same.items()}},
+                              "keypoints": m["keypoints"], "n_matches": m["n_matches"],
+                              "n_inliers": m["n_inliers"], "consensus": m["consensus"],
+                              "rotation_err_deg": rot, "translation_err_deg": t_err,
+                              "rect_shape": rect_shape, "launches": launches_c}
 
-    # (d) the RGB pair as 8-bit Adam7; 480x640 pairs at 1 and 4 bits
-    arrays, same, _ = files_vs_arrays(apaths, kfile, "adam7")
-    gate(all(same.values()), "adam7_files_vs_arrays")
-    try:
-        rot, t_err = check_two_view(np, arrays, R_gt, t_gt)
-    except (AssertionError, TypeError) as e:
-        rot = t_err = None
-        gate(False, f"adam7_two_view: {e}")
-    out["ex01_adam7_rgb8"] = {"identical": same, "n_inliers": arrays["metrics"]["n_inliers"],
-                              "consensus": arrays["metrics"]["consensus"],
-                              "rotation_err_deg": rot, "translation_err_deg": t_err}
-    lg, _, lK, _ = render_pair(SFM_H, SFM_W, "cuda", SFM_TEX)
-    np.savetxt(d("Kl.txt"), lK)
-    for depth in (1, 4):
-        lpaths = [d(f"gray{depth}-{i}.png") for i in (0, 1)]
-        for i, (p, g) in enumerate(zip(lpaths, lg)):
-            write(p, png_encode(np, to_depth(np, g, depth, SEED + 10 * depth + i), 0, depth,
-                                [0, 1, 2, 3, 4]))
-        dtype = decodes(lpaths)[1][0].dtype
-        arrays, same, err = files_vs_arrays(lpaths, d("Kl.txt"), f"gray{depth}")
-        gate(all(same.values()) and dtype == (np.bool_ if depth == 1 else np.uint8),
-             f"gray{depth}_files_vs_arrays")
-        out[f"ex01_gray{depth}"] = {"dtype": str(dtype), "identical": same,
-                                    "value_error": err} | ({} if arrays is None else {
-            "n_matches": arrays["metrics"]["n_matches"],
-            "n_inliers": arrays["metrics"]["n_inliers"],
-            "consensus": arrays["metrics"]["consensus"]})
+        # (d) the RGB pair as 8-bit Adam7; 480x640 pairs at 1 and 4 bits
+        arrays, same, _ = files_vs_arrays(apaths, kfile, "adam7")
+        gate(all(same.values()), "adam7_files_vs_arrays")
+        try:
+            rot, t_err = check_two_view(np, arrays, R_gt, t_gt)
+        except (AssertionError, TypeError) as e:
+            rot = t_err = None
+            gate(False, f"adam7_two_view: {e}")
+        out["ex01_adam7_rgb8"] = {"identical": same, "n_inliers": arrays["metrics"]["n_inliers"],
+                                  "consensus": arrays["metrics"]["consensus"],
+                                  "rotation_err_deg": rot, "translation_err_deg": t_err}
+        lg, _, lK, _ = render_pair(SFM_H, SFM_W, "cuda", SFM_TEX)
+        np.savetxt(d("Kl.txt"), lK)
+        for depth in (1, 4):
+            lpaths = [d(f"gray{depth}-{i}.png") for i in (0, 1)]
+            for i, (p, g) in enumerate(zip(lpaths, lg)):
+                write(p, png_encode(np, to_depth(np, g, depth, SEED + 10 * depth + i), 0, depth,
+                                    [0, 1, 2, 3, 4]))
+            dtype = decodes(lpaths)[1][0].dtype
+            arrays, same, err = files_vs_arrays(lpaths, d("Kl.txt"), f"gray{depth}")
+            gate(all(same.values()) and dtype == (np.bool_ if depth == 1 else np.uint8),
+                 f"gray{depth}_files_vs_arrays")
+            out[f"ex01_gray{depth}"] = {"dtype": str(dtype), "identical": same,
+                                        "value_error": err} | ({} if arrays is None else {
+                "n_matches": arrays["metrics"]["n_matches"],
+                "n_inliers": arrays["metrics"]["n_inliers"],
+                "consensus": arrays["metrics"]["consensus"]})
 
-    # (e) ex02 cold from the 10 views as 16-bit gray
-    vgrays, _, vK, poses = render_views(SFM_VIEWS, SFM_H, SFM_W, "cuda", SFM_TEX)
-    gt_C = np.array([C for _, _, C in poses])
-    vpaths = [d(f"v{i:02d}.png") for i in range(SFM_VIEWS)]
-    for i, (p, g) in enumerate(zip(vpaths, vgrays)):
-        write(p, png_encode(np, to_depth(np, g, 16, SEED + 100 + i), 0, 16, [1, 2, 3, 4]))
-    np.savetxt(d("Kv.txt"), vK)
-    secs, _ = run_cli("spectavi_tpu_torch.pipeline.ex02",
-                      [*vpaths, d("Kv.txt"), "--pairs", "sequential", "--outdir", d("ex02_cli"),
-                       "--seed", str(SEED)])
-    with open(d("ex02_cli", "metrics.json")) as f:
-        sm = json.load(f)
-    cams = np.loadtxt(d("ex02_cli", "poses.txt"))
-    share = ate_rmse(camera_centers(cams), gt_C) / np.ptp(gt_C, axis=0).max()
-    gate(len(sm["pairs"]) == SFM_VIEWS - 1 and all(p.get("success") for p in sm["pairs"])
-         and share < 0.02, "ex02")
-    sgrays = decodes(vpaths)[0]
-    res, arrays_s = timed(lambda: run_sfm_arrays(sgrays, np.loadtxt(d("Kv.txt")),
-                                                 outdir=d("ex02_arrays"), generator=gen(),
-                                                 quiet=True))
-    ex02_same = {n: file_bytes(d("ex02_cli", n)) == file_bytes(d("ex02_arrays", n))
-                 for n in ("poses.txt", "sparse_cloud.ply")}
-    gate(all(ex02_same.values()), "ex02_cli_vs_arrays")
-    out["ex02_gray16"] = {"cold_cli_s": secs, "arrays_s": arrays_s, "pairs": len(sm["pairs"]),
-                          "failed_pairs": [p["pair"] for p in sm["pairs"] if not p.get("success")],
-                          "init_used": sm["init_used"], "tracks": sm["n_tracks"],
-                          "ate_share": share, "identical": ex02_same,
-                          "tracks_arrays": res["metrics"]["n_tracks"]}
+        # (e) ex02 cold from the 10 views as 16-bit gray
+        vgrays, _, vK, poses = render_views(SFM_VIEWS, SFM_H, SFM_W, "cuda", SFM_TEX)
+        gt_C = np.array([C for _, _, C in poses])
+        vpaths = [d(f"v{i:02d}.png") for i in range(SFM_VIEWS)]
+        for i, (p, g) in enumerate(zip(vpaths, vgrays)):
+            write(p, png_encode(np, to_depth(np, g, 16, SEED + 100 + i), 0, 16, [1, 2, 3, 4]))
+        np.savetxt(d("Kv.txt"), vK)
+        secs, _ = run_cli("spectavi_tpu_torch.pipeline.ex02",
+                          [*vpaths, d("Kv.txt"), "--pairs", "sequential", "--outdir", d("ex02_cli"),
+                           "--seed", str(SEED)])
+        with open(d("ex02_cli", "metrics.json")) as f:
+            sm = json.load(f)
+        cams = np.loadtxt(d("ex02_cli", "poses.txt"))
+        share = ate_rmse(camera_centers(cams), gt_C) / np.ptp(gt_C, axis=0).max()
+        gate(len(sm["pairs"]) == SFM_VIEWS - 1 and all(p.get("success") for p in sm["pairs"])
+             and share < 0.02, "ex02")
+        sgrays = decodes(vpaths)[0]
+        res, arrays_s = timed(lambda: run_sfm_arrays(sgrays, np.loadtxt(d("Kv.txt")),
+                                                     outdir=d("ex02_arrays"), generator=gen(),
+                                                     quiet=True))
+        ex02_same = {n: file_bytes(d("ex02_cli", n)) == file_bytes(d("ex02_arrays", n))
+                     for n in ("poses.txt", "sparse_cloud.ply")}
+        gate(all(ex02_same.values()), "ex02_cli_vs_arrays")
+        out["ex02_gray16"] = {"cold_cli_s": secs, "arrays_s": arrays_s, "pairs": len(sm["pairs"]),
+                              "failed_pairs": [p["pair"] for p in sm["pairs"]
+                                               if not p.get("success")],
+                              "init_used": sm["init_used"], "tracks": sm["n_tracks"],
+                              "ate_share": share, "identical": ex02_same,
+                              "tracks_arrays": res["metrics"]["n_tracks"]}
 
-    # (f) the small pair as 16-bit gray on the card and on the CPU
-    sg, _, sK, _ = small
-    spaths = [d(f"small{i}.png") for i in (0, 1)]
-    for i, (p, g) in enumerate(zip(spaths, sg)):
-        write(p, png_encode(np, to_depth(np, g, 16, SEED + 200 + i), 0, 16, [4]))
-    np.savetxt(d("Ks.txt"), sK)
-    par = {}
-    for dev in ("cuda", "cpu"):
-        pio._decode.cache_clear()
-        with host_ransac_tables(torch):
-            r = run_two_view(spaths, d("Ks.txt"), outdir=None, matching_method="l2-mxu",
-                             generator=gen(dev), quiet=True, device=dev)["metrics"]
-        par[dev] = {k: r[k] for k in ("keypoints", "n_matches", "consensus")}
-    gate(parity_holds(par["cuda"], par["cpu"]), "cpu_parity")
-    out["cpu_parity"] = {"shape": [int(v) for v in sg[0].shape], **par}
+        # (f) the small pair as 16-bit gray on the card and on the CPU
+        sg, _, sK, _ = small
+        spaths = [d(f"small{i}.png") for i in (0, 1)]
+        for i, (p, g) in enumerate(zip(spaths, sg)):
+            write(p, png_encode(np, to_depth(np, g, 16, SEED + 200 + i), 0, 16, [4]))
+        np.savetxt(d("Ks.txt"), sK)
+        par = {}
+        for dev in ("cuda", "cpu"):
+            pio._decode.cache_clear()
+            with host_ransac_tables(torch):
+                r = run_two_view(spaths, d("Ks.txt"), outdir=None, matching_method="l2-mxu",
+                                 generator=gen(dev), quiet=True, device=dev)["metrics"]
+            par[dev] = {k: r[k] for k in ("keypoints", "n_matches", "consensus")}
+        gate(parity_holds(par["cuda"], par["cpu"]), "cpu_parity")
+        out["cpu_parity"] = {"shape": [int(v) for v in sg[0].shape], **par}
 
-    launches = {name: mod_.launches for name, mod_ in wrappers.items()}
     gate(all(v > 0 for v in launches.values()), "launches")
     emit("png_depths", launches=launches, failed=bad, **out)
     if bad:
@@ -2822,6 +2678,7 @@ def phase_pillow_free_inputs(torch, np, pair, wrappers, smi):
     import shutil
     import tempfile
 
+    from sfmbench import scene
     from spectavi_tpu_torch.pipeline import io as pio
     from spectavi_tpu_torch.pipeline.jpeg import read_jpeg
     from spectavi_tpu_torch.pipeline.sfm import run_sfm_arrays
@@ -2833,8 +2690,6 @@ def phase_pillow_free_inputs(torch, np, pair, wrappers, smi):
     pf_dir = tempfile.mkdtemp(prefix="pillow-free-", dir=os.path.join(ROOT, "build"))
     d = lambda *p: os.path.join(pf_dir, *p)
     fx = lambda *p: os.path.join(ROOT, JPEG_FIXTURES, *p)
-    for mod_ in wrappers.values():
-        mod_.launches = 0
     out, bad = {"card": smi}, []
 
     def gate(ok, name):
@@ -2889,87 +2744,89 @@ def phase_pillow_free_inputs(torch, np, pair, wrappers, smi):
                 "consensus": m["consensus"], "rotation_err_deg": rot, "translation_err_deg": t_err,
                 "rect_shape": rect_shape}
 
-    # (a) every progressive fixture cut after each scan but its last
-    digests, smooth_s = {}, {}
-    for name, want in JPEG_SMOOTH_SHA256.items():
-        data = file_bytes(fx(name))
-        digests[name], smooth_s[name] = timed(lambda: jpeg_smooth_digest(np, data, read_jpeg))
-        gate(digests[name] == want, f"{name}_smooth_digest")
-    out["smoothing"] = {"cuts": {n: file_bytes(fx(n)).count(b"\xff\xda") - 1
-                                 for n in JPEG_SMOOTH_SHA256},
-                        "decode_all_cuts_s": smooth_s, "digests": digests}
+    with launch_counts(wrappers) as launches:
+        # (a) every progressive fixture cut after each scan but its last
+        digests, smooth_s = {}, {}
+        for name, want in JPEG_SMOOTH_SHA256.items():
+            data = file_bytes(fx(name))
+            digests[name], smooth_s[name] = timed(lambda: jpeg_smooth_digest(np, data, read_jpeg))
+            gate(digests[name] == want, f"{name}_smooth_digest")
+        out["smoothing"] = {"cuts": {n: file_bytes(fx(n)).count(b"\xff\xda") - 1
+                                     for n in JPEG_SMOOTH_SHA256},
+                            "decode_all_cuts_s": smooth_s, "digests": digests}
 
-    # (b) ex01 cold from the progressive pair cut after scan PAIR_CUT_SCAN
-    cpaths = [d(f"cut{i}.jpg") for i in (0, 1)]
-    dec_s = []
-    for i, p in enumerate(cpaths):
-        cut = cut_after_scan(file_bytes(fx(f"pair{i}.jpg")), PAIR_CUT_SCAN)
-        write(p, cut)
-        im, secs = timed(lambda: read_jpeg(cut))
-        dec_s.append(secs)
-        gate(im is not None and im.shape == (H, W, 3), f"cut{i}_decode")
-    pose = np.loadtxt(fx("pose.txt"))
-    out["ex01_smoothed_jpeg"] = {"scan": PAIR_CUT_SCAN, "bytes": os.path.getsize(cpaths[0]),
-                                 "decode_s": dec_s, **ex01_cold_vs_arrays(
-                                     cpaths, fx("K.txt"), "smoothed", pose[:, :3], pose[:, 3])}
+        # (b) ex01 cold from the progressive pair cut after scan PAIR_CUT_SCAN
+        cpaths = [d(f"cut{i}.jpg") for i in (0, 1)]
+        dec_s = []
+        for i, p in enumerate(cpaths):
+            cut = cut_after_scan(file_bytes(fx(f"pair{i}.jpg")), PAIR_CUT_SCAN)
+            write(p, cut)
+            im, secs = timed(lambda: read_jpeg(cut))
+            dec_s.append(secs)
+            gate(im is not None and im.shape == (H, W, 3), f"cut{i}_decode")
+        pose = np.loadtxt(fx("pose.txt"))
+        out["ex01_smoothed_jpeg"] = {"scan": PAIR_CUT_SCAN, "bytes": os.path.getsize(cpaths[0]),
+                                     "decode_s": dec_s, **ex01_cold_vs_arrays(
+                                         cpaths, fx("K.txt"), "smoothed", pose[:, :3], pose[:, 3])}
 
-    # (c) ex01 cold from the pair as 8-bit P6, ex02 cold from 16-bit P5 views
-    ppaths = [d(f"pair{i}.ppm") for i in (0, 1)]
-    kfile = d("K.txt")
-    np.savetxt(kfile, K)
-    enc, dec = {}, {}
-    for p, c in zip(ppaths, colors):
-        data, enc["p6_8bit"] = timed(lambda: pnm_encode(np, as_rgb(np, c), 6, 255))
-        write(p, data)
-    im, dec["p6_8bit"] = timed(lambda: pio._read_pnm(file_bytes(ppaths[0])))
-    exact = {"p6_8bit": same_bytes(np, im, as_rgb(np, colors[0]))}
-    g16 = to_depth(np, grays[0], 16, SEED)
-    data = pnm_encode(np, g16, 5, 65535)
-    im, dec["p5_16bit"] = timed(lambda: pio._read_pnm(data))
-    exact["p5_16bit"] = same_bytes(np, im, g16.astype(np.int32))
-    gate(all(exact.values()), f"pnm_decode_exact: {exact}")
-    out["pnm_codec"] = {"shape": [H, W], "decode_s": dec, "encode_s": enc, "exact": exact,
-                        "bytes": {"p6_8bit": os.path.getsize(ppaths[0]), "p5_16bit": len(data)}}
-    out["ex01_p6"] = ex01_cold_vs_arrays(ppaths, kfile, "p6", R_gt, t_gt)
+        # (c) ex01 cold from the pair as 8-bit P6, ex02 cold from 16-bit P5 views
+        ppaths = [d(f"pair{i}.ppm") for i in (0, 1)]
+        kfile = d("K.txt")
+        np.savetxt(kfile, K)
+        enc, dec = {}, {}
+        for p, c in zip(ppaths, colors):
+            data, enc["p6_8bit"] = timed(lambda: pnm_encode(np, scene.as_rgb(c), 6, 255))
+            write(p, data)
+        im, dec["p6_8bit"] = timed(lambda: pio._read_pnm(file_bytes(ppaths[0])))
+        exact = {"p6_8bit": same_bytes(np, im, scene.as_rgb(colors[0]))}
+        g16 = to_depth(np, grays[0], 16, SEED)
+        data = pnm_encode(np, g16, 5, 65535)
+        im, dec["p5_16bit"] = timed(lambda: pio._read_pnm(data))
+        exact["p5_16bit"] = same_bytes(np, im, g16.astype(np.int32))
+        gate(all(exact.values()), f"pnm_decode_exact: {exact}")
+        out["pnm_codec"] = {"shape": [H, W], "decode_s": dec, "encode_s": enc, "exact": exact,
+                            "bytes": {"p6_8bit": os.path.getsize(ppaths[0]), "p5_16bit": len(data)}}
+        out["ex01_p6"] = ex01_cold_vs_arrays(ppaths, kfile, "p6", R_gt, t_gt)
 
-    vgrays, _, vK, poses = render_views(SFM_VIEWS, SFM_H, SFM_W, "cuda", SFM_TEX)
-    gt_C = np.array([C for _, _, C in poses])
-    vpaths = [d(f"v{i:02d}.pgm") for i in range(SFM_VIEWS)]
-    for i, (p, g) in enumerate(zip(vpaths, vgrays)):
-        depth = 12 if i == PNM_VIEW_12BIT else 16
-        write(p, pnm_encode(np, to_depth(np, g, depth, SEED + 300 + i), 5, (1 << depth) - 1))
-    np.savetxt(d("Kv.txt"), vK)
-    secs, _ = run_cli("spectavi_tpu_torch.pipeline.ex02",
-                      [*vpaths, d("Kv.txt"), "--pairs", "sequential", "--outdir", d("ex02_cli"),
-                       "--seed", str(SEED)])
-    with open(d("ex02_cli", "metrics.json")) as f:
-        sm = json.load(f)
-    cams = np.loadtxt(d("ex02_cli", "poses.txt"))
-    share = ate_rmse(camera_centers(cams), gt_C) / np.ptp(gt_C, axis=0).max()
-    gate(len(sm["pairs"]) == SFM_VIEWS - 1 and all(p.get("success") for p in sm["pairs"])
-         and share < 0.02, "ex02")
-    pio._decode.cache_clear()
-    sgrays = [pio.imread(p, dtype="float32", force_grayscale=True) for p in vpaths]
-    dtypes = sorted({str(pio.imread(p, dtype="uint8").dtype) for p in vpaths})
-    res, arrays_s = timed(lambda: run_sfm_arrays(sgrays, np.loadtxt(d("Kv.txt")),
-                                                 outdir=d("ex02_arrays"), generator=gen(),
-                                                 quiet=True))
-    ex02_same = {n: file_bytes(d("ex02_cli", n)) == file_bytes(d("ex02_arrays", n))
-                 for n in ("poses.txt", "sparse_cloud.ply")}
-    gate(all(ex02_same.values()), "ex02_cli_vs_arrays")
-    out["ex02_p5_16bit"] = {"cold_cli_s": secs, "arrays_s": arrays_s, "pairs": len(sm["pairs"]),
-                            "failed_pairs": [p["pair"] for p in sm["pairs"] if not p.get("success")],
-                            "dtypes": dtypes, "init_used": sm["init_used"],
-                            "tracks": sm["n_tracks"], "ate_share": share, "identical": ex02_same,
-                            "tracks_arrays": res["metrics"]["n_tracks"]}
+        vgrays, _, vK, poses = render_views(SFM_VIEWS, SFM_H, SFM_W, "cuda", SFM_TEX)
+        gt_C = np.array([C for _, _, C in poses])
+        vpaths = [d(f"v{i:02d}.pgm") for i in range(SFM_VIEWS)]
+        for i, (p, g) in enumerate(zip(vpaths, vgrays)):
+            depth = 12 if i == PNM_VIEW_12BIT else 16
+            write(p, pnm_encode(np, to_depth(np, g, depth, SEED + 300 + i), 5, (1 << depth) - 1))
+        np.savetxt(d("Kv.txt"), vK)
+        secs, _ = run_cli("spectavi_tpu_torch.pipeline.ex02",
+                          [*vpaths, d("Kv.txt"), "--pairs", "sequential", "--outdir", d("ex02_cli"),
+                           "--seed", str(SEED)])
+        with open(d("ex02_cli", "metrics.json")) as f:
+            sm = json.load(f)
+        cams = np.loadtxt(d("ex02_cli", "poses.txt"))
+        share = ate_rmse(camera_centers(cams), gt_C) / np.ptp(gt_C, axis=0).max()
+        gate(len(sm["pairs"]) == SFM_VIEWS - 1 and all(p.get("success") for p in sm["pairs"])
+             and share < 0.02, "ex02")
+        pio._decode.cache_clear()
+        sgrays = [pio.imread(p, dtype="float32", force_grayscale=True) for p in vpaths]
+        dtypes = sorted({str(pio.imread(p, dtype="uint8").dtype) for p in vpaths})
+        res, arrays_s = timed(lambda: run_sfm_arrays(sgrays, np.loadtxt(d("Kv.txt")),
+                                                     outdir=d("ex02_arrays"), generator=gen(),
+                                                     quiet=True))
+        ex02_same = {n: file_bytes(d("ex02_cli", n)) == file_bytes(d("ex02_arrays", n))
+                     for n in ("poses.txt", "sparse_cloud.ply")}
+        gate(all(ex02_same.values()), "ex02_cli_vs_arrays")
+        out["ex02_p5_16bit"] = {"cold_cli_s": secs, "arrays_s": arrays_s, "pairs": len(sm["pairs"]),
+                                "failed_pairs": [p["pair"] for p in sm["pairs"]
+                                                 if not p.get("success")],
+                                "dtypes": dtypes, "init_used": sm["init_used"],
+                                "tracks": sm["n_tracks"], "ate_share": share,
+                                "identical": ex02_same,
+                                "tracks_arrays": res["metrics"]["n_tracks"]}
 
-    # (d) the small Netpbm files against Pillow's pinned digests
-    failed = [name for name, data in pnm_digest_files(np).items()
-              if png_digest(pio._read_pnm(data)) != PNM_SHA256[name]]
-    gate(not failed, f"pnm_digests: {failed}")
-    out["pnm_digests"] = {"files": len(PNM_CASES), "failed": failed}
+        # (d) the small Netpbm files against Pillow's pinned digests
+        failed = [name for name, data in pnm_digest_files(np).items()
+                  if png_digest(pio._read_pnm(data)) != PNM_SHA256[name]]
+        gate(not failed, f"pnm_digests: {failed}")
+        out["pnm_digests"] = {"files": len(PNM_CASES), "failed": failed}
 
-    launches = {name: mod_.launches for name, mod_ in wrappers.items()}
     gate(all(v > 0 for v in launches.values()), "launches")
     emit("pillow_free_inputs", launches=launches, failed=bad, **out)
     if bad:
@@ -3179,13 +3036,11 @@ def dist_worker(argv):
     # the distributed path, every count at 0
     wrappers = {"l2nn_top2": l2nn, "sift_orient_hist": so, "sift_desc": sd,
                 "sampson_count": sampson}
-    for mod in wrappers.values():
-        mod.launches = 0
-    sync()
-    got = {cname: fn() for cname, fn in calls.items()}
-    got.update({"ba_" + lname: ba_steps(lname, 5) for lname in ba})
-    sync()
-    launches = {wname: mod.launches for wname, mod in wrappers.items()}
+    with launch_counts(wrappers) as launches:
+        sync()
+        got = {cname: fn() for cname, fn in calls.items()}
+        got.update({"ba_" + lname: ba_steps(lname, 5) for lname in ba})
+        sync()
 
     checks = {}
     for cname, (idx, dist) in ((c, got[c]) for c in got if c.startswith("sharded_")):
@@ -3370,14 +3225,12 @@ def main(argv):
     cold_s = time.perf_counter() - t0
     wrappers = {"l2nn_top2": l2nn, "sift_orient_hist": so, "sift_desc": sd,
                 "sampson_count": sampson}
-    for mod_ in wrappers.values():
-        mod_.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    warm = run("cuda", grays, colors, K)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    launches = {name: mod_.launches for name, mod_ in wrappers.items()}
+    with launch_counts(wrappers) as launches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = run("cuda", grays, colors, K)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
     m = warm["metrics"]
     rot_err, t_err = pose_errors(np, warm["ransac"]["camera"], R_gt, t_gt)
     emit("two_view", cold_seconds=cold_s, warm_seconds=warm_s,
@@ -3397,15 +3250,13 @@ def main(argv):
     mg, mc, mk, (mR, mt_) = render_pair(MID_H, MID_W, "cuda", MID_TEX)
     by_method = {}
     for method in ("cascading-hash", "bruteforce"):
-        for mod_ in wrappers.values():
-            mod_.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = run("cuda", mg, mc, mk, method)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        with launch_counts(wrappers) as n_launch:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run("cuda", mg, mc, mk, method)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
         mm = res["metrics"]
-        n_launch = {name: mod_.launches for name, mod_ in wrappers.items()}
         r_err, tr_err = check_two_view(np, res, mR, mt_)
         if not (mm["matching_method"] == method and mm["fused_frontend"] is False
                 and n_launch["sift_orient_hist"] > 0 and n_launch["sift_desc"] > 0):

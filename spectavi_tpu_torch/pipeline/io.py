@@ -444,9 +444,9 @@ def _write_png(filename, arr):
     """8-bit PNG of ``(H, W)`` or ``(H, W, C)`` uint8, ``C`` 1 to 4 (gray,
     gray + alpha, RGB, RGBA), every row Sub filtered and compressed at
     ``zlib`` level 3: in a fifth to a half of the time that Paeth rows
-    at level 6 take, within 3% of their size on the noisy and smooth
-    textures of ``pipeline/png_timing.py`` and 14% above it on the
-    rendered RGB pair of ``chip_smoke.py``."""
+    at level 6 take, within 3% of their size on noisy and smooth 2048x3072
+    textures and 14% above it on the rendered RGB pair of
+    ``chip_smoke.py``."""
     arr = np.asarray(arr)
     channels = 1 if arr.ndim == 2 else arr.shape[-1] if arr.ndim == 3 else 0
     if arr.dtype != np.uint8 or channels not in _PNG_TYPE_OF:

@@ -102,7 +102,7 @@ def _match_pairs_batched(descs, pts_cal, pair_list, generator, ropts, min_ratio,
     (``make_two_view_step(..., sized=True)``, ``compact_to`` its floor),
     so every ratio-test survivor competes in RANSAC.
     Returns the per-pair result dicts."""
-    from spectavi_tpu_torch.parallel.two_view import bucket_rows, make_two_view_step
+    from spectavi_tpu_torch.parallel.two_view import make_two_view_step
 
     dev = resolve_device(device)
     coords = [pc.astype(np.float32) for pc in pts_cal]
@@ -157,14 +157,9 @@ def _match_pairs_batched(descs, pts_cal, pair_list, generator, ropts, min_ratio,
     results = []
     with annotate("pairs.unpack"):
         n_matches = [int(ratio_ok[b, : ny[b]].sum()) for b in range(B)]
-        C = bucket_rows(max(n_matches), compact_to, Y)
         count("pair_survivors", sum(n_matches))
-        count("pair_survivors_cut", sum(max(n - C, 0) for n in n_matches))
         for b, (i, j) in enumerate(pair_list):
             n_match = n_matches[b]
-            # survivors beyond the compaction bucket never competed, so the
-            # consensus denominator is the competitor count
-            n_competed = min(n_match, C)
             inl_j = np.where(inl_mask[b, : ny[b]])[0].astype(np.int64)
             inl_i = midx0[b, inl_j].astype(np.int64)
             results.append({
@@ -175,7 +170,7 @@ def _match_pairs_batched(descs, pts_cal, pair_list, generator, ropts, min_ratio,
                 "count": int(n_best[b]),
                 "idx_i": inl_i,
                 "idx_j": inl_j,
-                "inlier_percent": (len(inl_j) / n_competed) if n_competed else 0.0,
+                "inlier_percent": len(inl_j) / n_match if n_match else 0.0,
             })
     return skipped + results
 

@@ -161,3 +161,25 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                          text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+# sha256 of the small pair's colours and of its grays, each view's bytes in
+# turn, as chip_smoke.py rendered them before it took the benchmark's
+# renderer (sfmbench/scene.py): the card's gates and the benchmark's cells
+# both run on these renders
+SMALL_PAIR_SHA256 = {
+    "colors": "db259848edbfeaffc03a6892954bd8c963efeaa8a10754d830d2134158339753",
+    "grays": "fa37cd11ee55d38726c28211c4b656dba51b821a98d1394ca7c217babfc888e1",
+}
+
+
+def test_chip_smoke_render_is_pinned():
+    import hashlib
+
+    import chip_smoke
+
+    grays, colors, _, _ = chip_smoke.render_pair(240, 320, "cpu", chip_smoke.SMALL_TEX)
+    for name, views, dtype in (("colors", colors, np.uint8), ("grays", grays, np.float32)):
+        assert [(v.dtype, v.shape) for v in views] == [(np.dtype(dtype), (240, 320))] * 2
+        digest = hashlib.sha256(b"".join(np.ascontiguousarray(v).tobytes() for v in views))
+        assert digest.hexdigest() == SMALL_PAIR_SHA256[name], name

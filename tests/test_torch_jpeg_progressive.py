@@ -45,6 +45,7 @@ from hypothesis import strategies as st
 from PIL import Image
 
 import chip_smoke
+from sfmbench import scene
 from spectavi_tpu_torch.pipeline import io as pio
 from spectavi_tpu_torch.pipeline.jpeg import read_jpeg
 from test_torch_jpeg import (CASTLE, SIZES, SUBSAMPLING, _pillow_jpeg, _pixels, _run_blocked,
@@ -545,8 +546,8 @@ def small_fixtures():
     """``{name: bytes}`` of every fixture but the pair's two images."""
     rgb, gray = chip_smoke.jpeg_digest_arrays(np)
     castle = np.asarray(Image.open(CASTLE))
-    poses = [chip_smoke.arc_pose(i, 2) for i in range(2)]
-    R, t = chip_smoke.relative_pose(poses)
+    poses = [scene.arc_pose(i, 2) for i in range(2)]
+    R, t = scene.relative_pose(poses)
     files = {
         "castle-progressive.jpg": _pillow_jpeg(castle, progressive=True, quality=95),
         "digest-rgb-progressive-rst3.jpg": _pillow_jpeg(rgb, progressive=True,
@@ -558,7 +559,7 @@ def small_fixtures():
         "digest-rgb-411.jpg": patched(rgb, "4:1:1"),
         "digest-rgb-440-progressive.jpg": patched(rgb, "4:4:0", progressive=True),
     }
-    for name, arr in (("K.txt", chip_smoke.camera_K(np, chip_smoke.H, chip_smoke.W)),
+    for name, arr in (("K.txt", scene.camera_K(chip_smoke.H, chip_smoke.W)),
                       ("pose.txt", np.column_stack([R, t]))):
         f = io.BytesIO()
         np.savetxt(f, arr)
@@ -570,7 +571,7 @@ def pair_fixtures():
     """The rendered 2048x3072 pair of ``chip_smoke.py`` as progressive
     RGB JPEG at quality 90, 4:2:0: ``{name: bytes}``."""
     _, colors, _, _ = chip_smoke.render_pair(chip_smoke.H, chip_smoke.W, "cpu", chip_smoke.TEX)
-    return {f"pair{i}.jpg": _pillow_jpeg(chip_smoke.as_rgb(np, c), progressive=True,
+    return {f"pair{i}.jpg": _pillow_jpeg(scene.as_rgb(c), progressive=True,
                                          quality=PAIR_QUALITY) for i, c in enumerate(colors)}
 
 

@@ -40,6 +40,7 @@ from hypothesis import strategies as st
 from PIL import Image
 
 import chip_smoke
+from sfmbench import scene
 from spectavi_tpu_torch.pipeline import io as pio
 from spectavi_tpu_torch.pipeline.jpeg import read_jpeg
 from test_torch_jpeg import (SUBSAMPLING, _pillow_jpeg, _pixels, _same_as_pillow, cut_after_scan,
@@ -223,7 +224,7 @@ def smoothed_pair(tmp_path_factory):
                                    W=320)
     paths = []
     for i, p in enumerate(pngs):
-        rgb = chip_smoke.as_rgb(np, np.asarray(Image.open(p)))
+        rgb = scene.as_rgb(np.asarray(Image.open(p)))
         paths.append(str(tmp / f"s{i}.jpg"))
         data = _pillow_jpeg(rgb, quality=90, progressive=True)
         pathlib.Path(paths[-1]).write_bytes(cut_after_scan(data, chip_smoke.PAIR_CUT_SCAN))

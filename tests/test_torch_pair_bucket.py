@@ -12,9 +12,9 @@
   floor against the benchmark's plain reference
   (``sfmbench.reference.ransac.pair_step``) given the same bucket: the
   same survivors, and the same inliers under the program's camera.
-* The counters ``pair_survivors``, ``pair_survivors_cut`` and
-  ``ba_observations`` are recorded while tracing is on and absent while
-  it is off.
+* The counters ``pair_survivors`` and ``ba_observations`` are recorded
+  while tracing is on and absent while it is off; the bucket is decided
+  in the pair step alone, so no count of survivors cut from it is kept.
 """
 
 import numpy as np
@@ -212,10 +212,10 @@ def test_counters_recorded_only_while_tracing(views):
         profiling.take()
     counters = rec["counters"]
     assert counters["pair_survivors"] == sum(r["n_matches"] for r in batch)
-    assert counters["pair_survivors_cut"] == 0
+    assert "pair_survivors_cut" not in counters
     assert counters["ba_observations"] == n_obs
     spans = {s["name"]: s["counts"] for s in rec["spans"]}
-    assert spans["pairs.unpack"]["pair_survivors_cut"] == 0
+    assert "pair_survivors_cut" not in spans["pairs.unpack"]
     assert spans["ba.setup"]["ba_observations"] == n_obs
 
     was = profiling.disable()

@@ -37,6 +37,7 @@ import torch
 from PIL import Image
 
 import chip_smoke
+from sfmbench import scene
 from spectavi_tpu_torch.pipeline import io as pio
 from test_torch_jpeg import ex01_on_jax_matches_and_draws_vs_jax, run_sfm_vs_jax
 
@@ -313,7 +314,7 @@ def ppm_pair(tmp_path_factory):
     paths = []
     for i, p in enumerate(pngs):
         paths.append(str(tmp / f"c{i}.ppm"))
-        rgb = chip_smoke.as_rgb(np, np.asarray(Image.open(p)))
+        rgb = scene.as_rgb(np.asarray(Image.open(p)))
         with open(paths[-1], "wb") as f:
             f.write(chip_smoke.pnm_encode(np, rgb, 6, 255))
     return tmp, paths, kfile, None
