@@ -1,10 +1,12 @@
 """Pose graph construction: tracks, pose chaining, N-view triangulation.
 
-Port of ``spectavi_tpu/sfm/pose_graph.py``.  The graph logic (union-find
-tracks, spanning-tree pose chaining with depth-ratio scale resolution)
-stays on the host, in the same iteration order, so the track table comes
-out identical; the masked N-view DLT triangulation is one batched
-tensor program on the caller's device.
+Port of ``spectavi_tpu/sfm/pose_graph.py``.  The graph logic stays on
+the host: tracks are the connected components of the matches, labelled
+with whole-array numpy operations over integer keypoint ids, in the row
+order of the JAX package's union-find, so the track table comes out
+identical; poses are chained over a spanning tree with depth-ratio scale
+resolution.  The masked N-view DLT triangulation is one batched tensor
+program on the caller's device.
 """
 
 from __future__ import annotations
@@ -14,53 +16,74 @@ import torch
 
 from spectavi_tpu_torch import resolve_device
 from spectavi_tpu_torch.sfm.bundle_adjust import rodrigues, rotation_to_rvec
-
-
-class _UnionFind:
-    def __init__(self):
-        self.parent = {}
-
-    def find(self, a):
-        p = self.parent.setdefault(a, a)
-        while p != a:
-            self.parent[a] = p = self.parent.setdefault(p, p)
-            a, p = p, self.parent[p]
-        return a
-
-    def union(self, a, b):
-        ra, rb = self.find(a), self.find(b)
-        if ra != rb:
-            self.parent[ra] = rb
+from spectavi_tpu_torch.utils.profiling import count
 
 
 def build_tracks(pair_matches, n_views):
     """Union keypoint matches into multi-view tracks.
 
     ``pair_matches``: dict ``(i, j) -> (idx_i, idx_j)`` of matched
-    keypoint indices per image pair.  Returns ``(T, n_views)`` int32,
-    the keypoint index per view or -1; tracks that hold two keypoints
-    of one view are dropped."""
-    uf = _UnionFind()
-    for (i, j), (idx_i, idx_j) in pair_matches.items():
-        for a, b in zip(np.asarray(idx_i), np.asarray(idx_j)):
-            uf.union((i, int(a)), (j, int(b)))
-    groups = {}
-    for key in list(uf.parent):
-        groups.setdefault(uf.find(key), []).append(key)
-    tracks = []
-    for members in groups.values():
-        if len(members) < 2:
-            continue
-        row = -np.ones(n_views, dtype=np.int32)
-        ok = True
-        for v, k in members:
-            if row[v] != -1 and row[v] != k:
-                ok = False
+    keypoint indices per image pair (any integer dtype).  Returns
+    ``(T, n_views)`` int32, the keypoint index per view or -1; tracks
+    that hold two keypoints of one view are dropped.
+
+    Keypoint ``k`` of view ``v`` is node ``offset[v] + k``; components
+    are labelled by hooking each root to the smallest root it is matched
+    to, then pointer jumping, until every match joins one root (the
+    smallest node id of its component).  Tracks come in the order of
+    their first match in ``pair_matches``' order, as a union-find that
+    walks the matches in turn lists them.  Counts the matches as
+    ``track_edges``."""
+    pairs = [(i, j, np.asarray(a, np.int64), np.asarray(b, np.int64))
+             for (i, j), (a, b) in pair_matches.items()]
+    n_edges = sum(len(a) for _, _, a, _ in pairs)
+    count("track_edges", n_edges)
+    if not n_edges:
+        return np.zeros((0, n_views), dtype=np.int32)
+    span = np.zeros(n_views + 1, np.int64)
+    for i, j, a, b in pairs:
+        if len(a):
+            span[i + 1] = max(span[i + 1], a.max() + 1)
+            span[j + 1] = max(span[j + 1], b.max() + 1)
+    offset = np.cumsum(span)
+    u = np.concatenate([offset[i] + a for i, _, a, _ in pairs])
+    w = np.concatenate([offset[j] + b for _, j, _, b in pairs])
+    n_nodes = int(offset[-1])
+    root = np.arange(n_nodes)
+    eu, ew = u, w
+    while True:
+        ru, rw = root[eu], root[ew]
+        apart = ru != rw
+        if not apart.any():
+            break
+        eu, ew, ru, rw = eu[apart], ew[apart], ru[apart], rw[apart]
+        np.minimum.at(root, np.maximum(ru, rw), np.minimum(ru, rw))
+        while True:
+            jumped = root[root]
+            if np.array_equal(jumped, root):
                 break
-            row[v] = k
-        if ok and (row != -1).sum() >= 2:
-            tracks.append(row)
-    return np.stack(tracks) if tracks else np.zeros((0, n_views), dtype=np.int32)
+            root = jumped
+    first = np.full(n_nodes, n_edges)
+    np.minimum.at(first, root[u], np.arange(n_edges))
+    seen = np.zeros(n_nodes, bool)
+    seen[u] = True
+    seen[w] = True
+    size = np.bincount(root[seen], minlength=n_nodes)
+    clash = np.zeros(n_nodes, bool)
+    for v in range(n_views):
+        view = slice(offset[v], offset[v + 1])
+        clash |= np.bincount(root[view][seen[view]], minlength=n_nodes) > 1
+    keep = np.flatnonzero((size >= 2) & ~clash)
+    keep = keep[np.argsort(first[keep])]
+    row = np.full(n_nodes, -1)
+    row[keep] = np.arange(len(keep))
+    tracks = np.full((len(keep), n_views), -1, dtype=np.int32)
+    for v in range(n_views):
+        view = slice(offset[v], offset[v + 1])
+        k = np.flatnonzero(seen[view])
+        t = row[root[view][k]]
+        tracks[t[t >= 0], v] = k[t >= 0]
+    return tracks
 
 
 # cuSOLVER's batched Jacobi SVD takes matrices of at most 32 rows; a

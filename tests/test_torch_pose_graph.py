@@ -2,7 +2,11 @@
 against ``spectavi_tpu.sfm`` on the same numpy inputs.
 
 Track building and observation flattening are host code and identical,
-track order included.  The N-view triangulation returns the null vector
+track order included, on cases that stress the union-find's order (cycles
+with conflicts, one keypoint matched twice into a view, a view paired
+with itself, empty pairs, unpaired views, unsorted pairs, both integer
+widths) and on ~600k matches of 11 views; the port counts the matches
+as ``track_edges`` while tracing.  The N-view triangulation returns the null vector
 of the DLT system, whose sign is arbitrary on both sides, so points are
 compared after division by the last coordinate (1e-9); a system of more
 than 32 rows takes the port's block reduction.  Pose chaining agrees to
@@ -26,6 +30,7 @@ tate = importlib.import_module("spectavi_tpu_torch.sfm.ate")
 jck = importlib.import_module("spectavi_tpu.sfm.checkpoint")
 tck = importlib.import_module("spectavi_tpu_torch.sfm.checkpoint")
 jba = importlib.import_module("spectavi_tpu.sfm.bundle_adjust")
+profiling = importlib.import_module("spectavi_tpu_torch.utils.profiling")
 
 T = lambda a: torch.as_tensor(np.array(a))
 
@@ -68,6 +73,109 @@ def test_build_tracks_and_observations_identical(rng):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
     assert tpg.build_tracks({}, 3).shape == (0, 3)
+
+
+def _swapped(rng, n, m, n_swaps):
+    """``m`` distinct keypoints of ``n`` matched to themselves, but for
+    ``n_swaps`` swapped pairs: cycles through them make conflicts."""
+    a = rng.choice(n, m, replace=False)
+    b = a.copy()
+    for s in rng.choice(m, (n_swaps, 2), replace=False):
+        b[s] = b[s[::-1]]
+    return a, b
+
+
+def _fountain(rng, V=11, K=30000, M=60000):
+    """Exhaustive pairs, in shuffled order, of ``V`` views of ``M`` scene
+    points, each seen by a view with probability 0.45 under a keypoint
+    of its own: 90% of a pair's co-visible points matched, 1% of those
+    to a random keypoint (~600k matches)."""
+    vis = rng.random((M, V)) < 0.45
+    kp = np.zeros((M, V), np.int64)
+    for v in range(V):
+        kp[vis[:, v], v] = rng.permutation(K)[: vis[:, v].sum()]
+    pairs = [(i, j) for i in range(V) for j in range(i + 1, V)]
+    rng.shuffle(pairs)
+    pm = {}
+    for i, j in pairs:
+        both = np.flatnonzero(vis[:, i] & vis[:, j] & (rng.random(M) < 0.9))
+        a, b = kp[both, i], kp[both, j].copy()
+        wrong = rng.random(len(b)) < 0.01
+        b[wrong] = rng.integers(0, K, wrong.sum())
+        pm[(i, j)] = (a, b)
+    return pm, V
+
+
+def _track_case(name, rng):
+    """``(pair_matches, n_views)`` of one parity case."""
+    empty = (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    if name == "cycles_with_conflicts":
+        return {(i, j): _swapped(rng, 80, 60, 3) for i in range(5) for j in range(i + 1, 5)}, 5
+    if name == "one_to_two_of_a_view":
+        return {(0, 1): (np.array([5, 5, 1, 2, 9]), np.array([3, 7, 1, 2, 4])),
+                (1, 2): (np.array([3, 1, 2, 7]), np.array([0, 1, 2, 6])),
+                (0, 2): (np.array([9, 1]), np.array([8, 1]))}, 3
+    if name == "pair_of_a_view_with_itself":
+        return {(0, 1): (np.arange(10), np.arange(10)),
+                (1, 1): (np.array([1, 2, 4, 6, 12]), np.array([1, 3, 4, 6, 12])),
+                (1, 2): (np.array([4, 6, 8]), np.array([0, 6, 2]))}, 3
+    if name == "empty_pair_among_others":
+        return {(0, 1): _swapped(rng, 50, 30, 1), (1, 2): empty,
+                (0, 2): _swapped(rng, 50, 30, 1), (2, 3): _swapped(rng, 50, 30, 0)}, 4
+    if name == "every_pair_empty":
+        return {(0, 1): empty, (1, 2): empty}, 3
+    if name == "no_pairs":
+        return {}, 3
+    if name == "views_in_no_pair":
+        return {(1, 3): _swapped(rng, 40, 25, 2), (3, 6): _swapped(rng, 40, 25, 1),
+                (1, 6): _swapped(rng, 40, 25, 0)}, 8
+    if name == "keys_not_sorted":
+        keys = [(2, 3), (0, 1), (1, 3), (0, 2), (1, 2), (0, 3)]
+        return {k: _swapped(rng, 70, 50, 2) for k in keys}, 4
+    return _fountain(rng)
+
+
+_TRACK_CASES = ("cycles_with_conflicts", "one_to_two_of_a_view", "pair_of_a_view_with_itself",
+                "empty_pair_among_others", "every_pair_empty", "no_pairs", "views_in_no_pair",
+                "keys_not_sorted")
+
+
+@pytest.mark.parametrize("name,dtype", [(n, d) for n in _TRACK_CASES for d in (np.int32, np.int64)]
+                         + [("fountain_sized", np.int64)])
+def test_build_tracks_matches_the_union_find(rng, name, dtype):
+    pm, V = _track_case(name, rng)
+    pm = {k: (a.astype(dtype), b.astype(dtype)) for k, (a, b) in pm.items()}
+    if name == "fountain_sized":
+        assert sum(len(a) for a, _ in pm.values()) >= 500_000
+    tj = jpg.build_tracks(pm, V)
+    tt = tpg.build_tracks(pm, V)
+    assert tt.dtype == tj.dtype == np.int32
+    np.testing.assert_array_equal(tt, tj)
+    assert tt.shape == tj.shape
+
+
+def test_build_tracks_counts_its_matches(rng):
+    pm = {(0, 1): _swapped(rng, 50, 30, 2), (1, 2): _swapped(rng, 50, 20, 0),
+          (0, 2): (np.zeros(0, np.int32), np.zeros(0, np.int32))}
+    profiling.take()
+    was = profiling.enable()
+    try:
+        with profiling.annotate("tracks"):
+            tpg.build_tracks(pm, 3)
+        rec = profiling.take()
+    finally:
+        profiling.enable(was)
+        profiling.take()
+    assert rec["counters"] == {"track_edges": 50}
+    assert [(s["name"], s["counts"]) for s in rec["spans"]] == [("tracks", {"track_edges": 50})]
+
+    was = profiling.disable()
+    try:
+        profiling.take()
+        tpg.build_tracks(pm, 3)
+        assert profiling.take() == {"spans": [], "counters": {}}
+    finally:
+        profiling.enable(was)
 
 
 def _euclid(X):
